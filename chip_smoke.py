@@ -1,0 +1,517 @@
+#!/usr/bin/env python3
+"""Smoke run of relation_tpu_torch on one NVIDIA GPU (built for the H100).
+
+    python3 chip_smoke.py                  # every phase (the full check)
+    python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain only
+
+1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
+   kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
+2. Holds each kernel against its plain PyTorch version on the card, at the
+   flagship shapes, on seeded random inputs, and times kernel, plain
+   version and (where one PyTorch call computes the same function) a
+   library yardstick with CUDA events.
+3. Drives the flagship (ResNet-101 C4/C5, 81 classes, 6000 -> 300
+   proposals, relation head, learned NMS with FIRST_N 100, 608x1024 s2d
+   input, init_params weights) through the port's entry points: four seeded
+   requests with the default class threshold (the data picks the
+   learned-NMS branch), then one with 56 active classes (dense branch) and
+   one with 16 (skip kernel). Every kernel's launch counter, zeroed just
+   before, must be above 0.
+4. Runs the same requests with the plain versions in place of the kernels
+   and holds the kernel path to them in the bands of tools/flagship_golden.py
+   (each top-50 detection matched by a same-class one at IoU >= 0.95,
+   |score delta| <= 2e-2).
+5. Prints one JSON line describing every kernel, then the device line.
+
+Any failure exits non-zero without the last line. Needs no network; the
+kernels build into relation_tpu_torch/_build/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
+F32_PEAK = 67e12          # f32 outside the tensor cores, flop/s
+BF16_PEAK = 989e12        # dense bf16 tensor cores, flop/s
+SINCOS_FLOPS = 24         # one sin/cos pair: range reduction + two polynomials
+IOU_FLOPS = 15            # one divide-free suppression test
+TOP_K, IOU_MIN, SCORE_ATOL = 50, 0.95, 2e-2   # tools/flagship_golden.py bands
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def bound(bytes_moved: float, flops: float, peak: float):
+    """(bound_ms, bound_by): the larger of memory time and compute time."""
+    t_mem, t_ops = bytes_moved / MEM_BW, flops / peak
+    return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations")
+
+
+def time_ms(torch, fn, inner: int = 10, reps: int = 21) -> float:
+    """Median device ms per call. A long sleep kernel first lets the host
+    queue all `inner` calls, so the events bracket device time only."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def random_boxes(rng, n, im_w=1000.0, im_h=600.0, clusters=60):
+    """Clustered boxes like RPN proposals: [n, 4] (x1, y1, x2, y2) f32."""
+    centers = rng.uniform([0, 0], [im_w, im_h], (clusters, 2))
+    cxy = centers[rng.randint(0, clusters, n)] + rng.randn(n, 2) * 12
+    wh = np.exp(rng.uniform(np.log(16), np.log(400), (n, 2)))
+    b = np.concatenate([cxy - wh / 2, cxy + wh / 2], 1)
+    b[:, 0::2] = b[:, 0::2].clip(0, im_w - 1)
+    b[:, 1::2] = b[:, 1::2].clip(0, im_h - 1)
+    return b.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# --------------------------------------------------------------------------
+
+def check_geom_bias(torch, dev, rng):
+    from relation_tpu_torch.ops.embeddings import (
+        extract_multi_position_matrix_t, extract_position_matrix_t)
+    from relation_tpu_torch.ops.kernels import geom_bias as K
+    G = 16
+    w = torch.tensor(rng.randn(64, G) * 0.1, dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.randn(G) * 0.05, dtype=torch.float32, device=dev)
+    shapes = {
+        # head relation modules: [1, 4, 300, 300], called twice per image
+        "head C=1 N=M=300": extract_position_matrix_t(
+            torch.tensor(random_boxes(rng, 300), device=dev), 300)[None],
+        # learned-NMS dense branch: [80, 4, 100, 100]
+        "lnms C=80 N=M=100": extract_multi_position_matrix_t(
+            torch.tensor(np.stack([random_boxes(rng, 100) for _ in range(80)], 1),
+                         device=dev)),
+    }
+    result = None
+    for label, pos in shapes.items():
+        pos = pos.contiguous()
+        C, _, N, M = pos.shape
+        got = K._launch(pos, w, b, 100.0)
+        want = K.geom_bias_reference(pos, w, b)
+        torch.cuda.synchronize()
+        # acc domain (log() near the 1e-6 clamp amplifies any rounding), and
+        # the log itself where acc is clear of the clamp
+        err = float((got.exp() - want.exp()).abs().max())
+        clear = want.exp() > 1e-2
+        err_log = float((got - want)[clear].abs().max())
+        tol = 1e-5
+        ok = err <= tol and err_log <= 1e-4 and bool(torch.isfinite(got).all())
+        ms = time_ms(torch, lambda: K._launch(pos, w, b, 100.0))
+        plain_ms = time_ms(torch, lambda: K.geom_bias_reference(pos, w, b))
+        pairs = C * N * M
+        bms, bby = bound(4 * (4 * pairs + G * pairs + 65 * G),
+                         pairs * (2 * 64 * G + 32 * SINCOS_FLOPS + 3 * G), F32_PEAK)
+        log(f"[kernel] geom_bias {label}: max|exp err| {err:.3e} (tol {tol:.0e}), "
+            f"max|log err| where acc>1e-2 {err_log:.3e} (tol 1e-4) "
+            f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms n/a bound_us {bms * 1e3:.2f} ({bby})")
+        if not ok:
+            fail(f"geom_bias {label} disagrees with its plain version")
+        result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                      bound_by=bby, library_ms=None)
+    return result  # the larger (learned-NMS) shape goes into the JSON line
+
+
+def check_nms(torch, dev, rng):
+    from relation_tpu_torch.ops.kernels import nms_kernel as K
+    n, np_pad, block, max_keep, thresh = 6000, 6144, 256, 300, 0.7
+    boxes = random_boxes(rng, n, clusters=25)
+    # the boxes stand in a random score order, already sorted: the NMS
+    # input contract
+    bT = np.zeros((1, 4, np_pad), np.float32)
+    bT[0, :, :n] = boxes.T
+    valid = np.zeros((1, np_pad), np.float32)
+    valid[0, :n] = 1.0
+    bT_t = torch.tensor(bT, device=dev)
+    v_t = torch.tensor(valid, device=dev)
+
+    def kernel():
+        return K.launch_sweep(v_t, K.launch_mask(bT_t, thresh), block, max_keep)
+    got = kernel()
+    want = K.nms_keep_sorted_reference(bT_t, v_t, thresh, block, max_keep)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    keep = want[0].cpu().numpy() > 0.5
+    kept_idx = np.nonzero(keep)[0]
+    ok = err == 0.0 and len(kept_idx) >= max_keep
+    ms = time_ms(torch, kernel)
+    mask = K.launch_mask(bT_t, thresh)
+    mask_ms = time_ms(torch, lambda: K.launch_mask(bT_t, thresh))
+    sweep_ms = time_ms(torch, lambda: K.launch_sweep(v_t, mask, block, max_keep))
+    plain_ms = time_ms(torch, lambda: K.nms_keep_sorted_reference(
+        bT_t, v_t, thresh, block, max_keep), inner=1)
+    # work this data needs: the sweep stops at the block boundary after the
+    # max_keep-th kept box; each kept box is tested against the later boxes
+    stop = min(np_pad, -(-(int(kept_idx[max_keep - 1]) + 1) // block) * block)
+    pairs = float(sum(stop - i - 1 for i in kept_idx if i < stop))
+    bms, bby = bound(np_pad * (16 + 4 + 4), IOU_FLOPS * pairs, F32_PEAK)
+    log(f"[kernel] nms_keep_sorted C=1 Np={np_pad} t={thresh} max_keep={max_keep}: "
+        f"keep-mask mismatches {err:.0f} (tol 0) {'OK' if ok else 'FAIL'}; "
+        f"kept {int(keep.sum())} by box {stop}; kernel_ms {ms:.4f} "
+        f"(mask pass {mask_ms:.4f}, sweep {sweep_ms:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms n/a; IoU-pass bound_us {bms * 1e3:.3f} ({bby}, "
+        f"{pairs:.0f} pairs)")
+    if not ok:
+        fail("nms_keep_sorted disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=None)
+
+
+def check_stem(torch, dev, rng):
+    import torch.nn.functional as F
+    from relation_tpu_torch.models.backbone import conv1_w4
+    from relation_tpu_torch.ops.kernels import stem as K
+    Ho, Wo = 304, 512
+    s2d = torch.tensor(rng.randn(1, 12, Ho, Wo) * 40, dtype=torch.float32, device=dev)
+    w7 = torch.tensor(rng.randn(64, 3, 7, 7) * (1 / 147) ** 0.5,
+                      dtype=torch.float32, device=dev)
+    w4 = conv1_w4(w7).contiguous()
+    scale = torch.tensor(rng.uniform(0.5, 2, 64), dtype=torch.float32, device=dev)
+    bias = torch.tensor(rng.randn(64), dtype=torch.float32, device=dev)
+    got = K._launch(s2d, w4, scale, bias).float()
+    want = K.stem_reference(s2d, w4, scale, bias).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    # one bf16 ulp of the plain value (both sum exact bf16 products in f32,
+    # in different orders, then round once)
+    ok = bool((diff <= want.abs() * 2.0 ** -7 + 1e-6).all())
+    ms = time_ms(torch, lambda: K._launch(s2d, w4, scale, bias))
+    plain_ms = time_ms(torch, lambda: K.stem_reference(s2d, w4, scale, bias))
+    # yardstick: cuDNN 7x7/2 conv (BN folded into weight and bias) + ReLU on
+    # the NCHW image the s2d input encodes
+    img = s2d[0].reshape(2, 2, 3, Ho, Wo).permute(2, 3, 0, 4, 1).reshape(
+        1, 3, 2 * Ho, 2 * Wo).to(torch.bfloat16)
+    wf = (w7 * scale[:, None, None, None]).to(torch.bfloat16)
+    bf = bias.to(torch.bfloat16)
+    lib = F.relu(F.conv2d(img, wf, bf, stride=2, padding=3)).float()
+    lib_err = float((lib - want).abs().max())
+    library_ms = time_ms(torch, lambda: F.relu_(F.conv2d(img, wf, bf, stride=2,
+                                                         padding=3)))
+    bms, bby = bound(12 * Ho * Wo * 4 + 64 * Ho * Wo * 2 + 192 * 64 * 2 + 512,
+                     2 * 64 * 192 * Ho * Wo, BF16_PEAK)
+    log(f"[kernel] stem_conv1_bn_relu [12,{Ho},{Wo}]: max abs err {err:.3e} "
+        f"(tol 1 bf16 ulp) {'OK' if ok else 'FAIL'}; library max abs diff "
+        f"{lib_err:.3e}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
+    if not ok:
+        fail("stem_conv1_bn_relu disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=library_ms)
+
+
+def check_attention(torch, dev, rng):
+    import torch.nn.functional as F
+    from relation_tpu_torch.ops.embeddings import extract_multi_position_matrix_t
+    from relation_tpu_torch.ops.kernels import geom_bias as GB
+    from relation_tpu_torch.ops.kernels import nms_attention as K
+    C, N, G, D, Fd, E, n_active = 80, 100, 16, 64, 128, 8, 16
+
+    def tens(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    pos = extract_multi_position_matrix_t(tens(np.stack(
+        [random_boxes(rng, N) for _ in range(C)], 1))).contiguous()
+    q, k = tens(rng.randn(C, N, G * D) * 0.5), tens(rng.randn(C, N, G * D) * 0.5)
+    v = tens(rng.randn(C, N, Fd))
+    wg, bg = tens(rng.randn(64, G) * 0.1), tens(rng.randn(G) * 0.05)
+    wl = tens(rng.randn(G, Fd, E) * 0.1)
+    act_np = np.zeros(C, np.int32)
+    act_np[rng.choice(C, n_active, replace=False)] = 1
+    active = torch.tensor(act_np, device=dev)
+    args = (pos, q, k, v, wg, bg, wl, active)
+    got = K.fused_nms_relation_attention_skip(*args)
+    want = K.nms_relation_attention_reference(*args)
+    torch.cuda.synchronize()
+    on = active.bool()
+    err = float((got[on] - want[on]).abs().max())
+    tol = 1e-4 * max(1.0, float(want[on].abs().max()))
+    ok = err <= tol
+    ms = time_ms(torch, lambda: K.fused_nms_relation_attention_skip(*args))
+    plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
+    # yardstick for the attention core: SDPA with the bias as a float mask
+    idx = torch.nonzero(on).flatten()
+    bias = GB.geom_bias_reference(pos[idx], wg, bg)
+    qs = q[idx].reshape(n_active, N, G, D).transpose(1, 2)
+    ks = k[idx].reshape(n_active, N, G, D).transpose(1, 2)
+    vs = v[idx][:, None].expand(n_active, G, N, Fd)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=bias))
+    A = n_active
+    flops = A * (2 * N * N * D * G + N * N * (32 * SINCOS_FLOPS + 2 * 64 * G)
+                 + 5 * N * N * G + 2 * N * N * Fd * G + 2 * N * Fd * E * G)
+    nbytes = A * 4 * (4 * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
+        64 * G + G + G * Fd * E + C)
+    bms, bby = bound(nbytes, flops, F32_PEAK)
+    log(f"[kernel] nms_attention_skip C={C} N={N} active={A}: max abs err on "
+        f"active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
+        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
+        f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
+    if not ok:
+        fail("fused_nms_relation_attention_skip disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=library_ms)
+
+
+# --------------------------------------------------------------------------
+# phases 3-4: the flagship through the port's entry points
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's four kernel calls to their plain versions (this
+    harness's comparison only; the port itself dispatches by device)."""
+    import relation_tpu_torch.models.backbone as bb
+    import relation_tpu_torch.models.relation as rel
+    import relation_tpu_torch.ops.nms as nms
+    from relation_tpu_torch.ops.kernels import (geom_bias, nms_attention,
+                                                nms_kernel, stem)
+    swaps = [(bb, "stem_conv1_bn_relu",
+              lambda x, w4, s, b: stem.stem_reference(x, w4, s, b)),
+             (rel, "fused_geometric_bias", geom_bias.geom_bias_reference),
+             (rel, "fused_nms_relation_attention_skip",
+              nms_attention.nms_relation_attention_reference),
+             (nms, "nms_keep_sorted", nms_kernel.nms_keep_sorted_reference)]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, f in swaps:
+        setattr(m, a, f)
+    try:
+        yield
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+
+
+def iou(a, b):
+    ix = np.maximum(0, np.minimum(a[2], b[:, 2]) - np.maximum(a[0], b[:, 0]) + 1)
+    iy = np.maximum(0, np.minimum(a[3], b[:, 3]) - np.maximum(a[1], b[:, 1]) + 1)
+    inter = ix * iy
+    ua = ((a[2] - a[0] + 1) * (a[3] - a[1] + 1)
+          + (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1) - inter)
+    return inter / np.maximum(ua, 1e-9)
+
+
+def match_dets(ref, new):
+    """Band check of tools/flagship_golden.py; returns a list of errors."""
+    ref = ref[ref[:, 0] >= 0]
+    new = new[new[:, 0] >= 0]
+    errs = []
+    for i, g in enumerate(ref[np.argsort(-ref[:, 1], kind="stable")][:TOP_K]):
+        same = new[new[:, 0] == g[0]]
+        if not len(same):
+            errs.append(f"top-{i}: class {int(g[0])} vanished")
+            continue
+        ious = iou(g[2:6], same[:, 2:6])
+        j = int(np.argmax(ious))
+        if ious[j] < IOU_MIN:
+            errs.append(f"top-{i} cls {int(g[0])}: best IoU {ious[j]:.3f}")
+        elif abs(same[j, 1] - g[1]) > SCORE_ATOL:
+            errs.append(f"top-{i} cls {int(g[0])}: score {same[j, 1]:.4f} vs {g[1]:.4f}")
+    return errs
+
+
+def run_flagship(torch, dev, n_images: int = 4, n_active: int = 16,
+                 tiny: bool = False):
+    """The flagship requests, kernel path then plain path. ``tiny`` (a
+    rehearsal on the CPU) takes the tiny trunk and a 64x128 image."""
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import make_predict_fn
+    from relation_tpu_torch.core.trainer import build_model
+    from relation_tpu_torch.entry import BUCKET, flagship_cfg
+    from relation_tpu_torch.ops.kernels import (geom_bias, nms_attention,
+                                                nms_kernel, stem)
+    modules = {"geom_bias": geom_bias, "nms_keep_sorted": nms_kernel,
+               "stem_conv1_bn_relu": stem,
+               "fused_nms_relation_attention_skip": nms_attention}
+    cfg = flagship_cfg(tiny_shapes=tiny)
+    if tiny:
+        # the tiny trunk's random head scores sit below the 1e-3 floor
+        cfg.TEST.SCORE_THRESH = 0.0
+    t0 = time.perf_counter()
+    model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+    torch.cuda.synchronize()
+    log(f"[e2e] flagship built: {sum(p.numel() for p in model.parameters())} "
+        f"params, trunk {model.conv_dtype}, head f32, "
+        f"{time.perf_counter() - t0:.1f} s")
+    H, W = (64, 128) if tiny else BUCKET
+    images = [torch.tensor(np.random.RandomState(7 + i).randn(12, H // 2, W // 2)
+                           * 40.0, dtype=torch.float32, device=dev)
+              for i in range(n_images)]
+    im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
+    predict = make_predict_fn(model, cfg)
+
+    # the class filter threshold picks the learned-NMS branch per request
+    # (relation.py:224): the default 0.01 lets the data decide; two more
+    # requests on image 0 fix it, 56 active classes (> C/2: dense geometric
+    # bias + batched attention) and n_active (<= C/2: the skip kernel)
+    out0 = predict(images[0], im_info)                 # warm-up
+    m = np.sort(out0["sorted_score"].max(0).values.cpu().numpy())[::-1]
+
+    def with_active(k):
+        c = cfg.copy()
+        c.TEST.LEARN_NMS_CLASS_SCORE_TH = float((m[k - 1] + m[k]) / 2)
+        return make_predict_fn(model, c)
+    reqs = [(f"image {i}", predict, img) for i, img in enumerate(images)]
+    reqs += [("dense, 56 active", with_active(56), images[0]),
+             (f"skip, {n_active} active", with_active(n_active), images[0])]
+    for _, fn, img in reqs[-2:]:
+        fn(img, im_info)                                # warm-up
+    torch.cuda.synchronize()
+
+    def run(record_branch):
+        outs, times, labels = [], [], []
+        for label, fn, img in reqs:
+            skips = nms_attention.launches
+            t1 = time.perf_counter()
+            o = fn(img, im_info)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            outs.append(o["dets"].cpu().numpy())
+            if record_branch:
+                label += " [skip]" if nms_attention.launches > skips else " [dense]"
+            labels.append(f"{label}: {times[-1]:.3f} ms")
+        return outs, times, labels
+
+    for mod in modules.values():
+        mod.launches = 0
+    outs, times, labels = run(True)
+    launches = {k: mod.launches for k, mod in modules.items()}
+    n_dets = [int((d[:, 0] >= 0).sum()) for d in outs]
+    log(f"[e2e] kernel path: {'; '.join(labels)}; median ms/image of the "
+        f"{n_images} default requests {statistics.median(times[:n_images]):.3f}; "
+        f"detections {n_dets}; launches {launches}")
+    if not (labels[-2].split(":")[0].endswith("[dense]")
+            and labels[-1].split(":")[0].endswith("[skip]")):
+        fail("the fixed-branch requests did not take their branches")
+    for d in outs:
+        if not np.isfinite(d).all() or d.shape != (int(cfg.TEST.max_per_image), 6):
+            fail(f"bad detections: shape {d.shape}, finite {np.isfinite(d).all()}")
+    if min(n_dets) == 0:
+        fail("a request returned no detections")
+    zero = [k for k, v in launches.items() if v <= 0]
+    if zero:
+        fail(f"kernels never launched on the main path: {zero}")
+
+    with plain_kernels():
+        for mod in modules.values():
+            mod.launches = 0
+        plain_outs, plain_times, plain_labels = run(False)
+        stray = {k: mod.launches for k, mod in modules.items() if mod.launches}
+    if stray:
+        fail(f"plain run launched kernels: {stray}")
+    errs = []
+    for (label, _, _), ref, new in zip(reqs, plain_outs, outs):
+        errs += [f"{label}: {e}" for e in match_dets(ref, new)]
+    log(f"[e2e] plain path: {'; '.join(plain_labels)}; kernel vs plain "
+        f"top-{TOP_K} (IoU>={IOU_MIN}, |ds|<={SCORE_ATOL}): "
+        f"{'OK' if not errs else f'{len(errs)} mismatches'}")
+    if errs:
+        for e in errs[:20]:
+            log(f"  {e}")
+        fail("kernel path outside the flagship bands of the plain path")
+    times = times[:n_images]
+    return launches, statistics.median(times)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=["all", "kernels"], default="all")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    sys.path.insert(0, HERE)
+    try:
+        from relation_tpu_torch.ops.kernels import _build
+    except ImportError as e:
+        fail(f"relation_tpu_torch not found beside chip_smoke.py ({e})")
+    if not _build.CSRC.is_relative_to(os.path.realpath(HERE)):
+        fail(f"relation_tpu_torch was imported from {_build.CSRC.parent}, not "
+             f"from the checkout beside chip_smoke.py ({HERE})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    build_s = _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} kernels built in {build_s:.1f} s")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    rng = np.random.RandomState(0)
+    checks = {
+        "geom_bias": ("relation_tpu_torch/csrc/geom_bias.cu",
+                      "relation_tpu/ops/pallas/geom_bias.py:275", check_geom_bias),
+        "nms_keep_sorted": ("relation_tpu_torch/csrc/nms_kernel.cu",
+                            "relation_tpu/ops/pallas/nms_kernel.py:118", check_nms),
+        "stem_conv1_bn_relu": ("relation_tpu_torch/csrc/stem.cu",
+                               "relation_tpu/ops/pallas/stem.py:67", check_stem),
+        "fused_nms_relation_attention_skip": (
+            "relation_tpu_torch/csrc/nms_attention.cu",
+            "relation_tpu/ops/pallas/nms_attention.py:317", check_attention),
+    }
+    results = {name: fn(torch, dev, rng) for name, (_, _, fn) in checks.items()}
+    if args.phase == "kernels":
+        log("[done] kernel phase only: no device line")
+        return
+
+    launches, ms_image = run_flagship(torch, dev)
+    log(f"[e2e] flagship median ms/image {ms_image:.3f} on {card}")
+    kernels = []
+    for name, (source, replaces, _) in checks.items():
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,122 @@
+"""Faster R-CNN (ResNet-101 C4 + dilated C5) with relation modules and the
+learned-NMS head (port of relation_tpu/models/detector.py, non-DCN).
+
+Public methods keep the JAX package's layouts so the tests compare like
+with like: ``features_and_rpn`` returns [h, w, 256] features and
+[h, w, A, 2] / [h, w, A, 4] RPN outputs. Inside, the trunk is NCHW.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from relation_tpu_torch.models.backbone import Conv2d, ResNet101C4, ResNet101C5
+from relation_tpu_torch.models.learn_nms import LearnNMSHead
+from relation_tpu_torch.models.relation import Dense, RelationModule
+from relation_tpu_torch.models.rpn import RPNHead
+from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
+from relation_tpu_torch.ops.roi_pool import roi_align_mxu
+
+
+class RelationRCNN(nn.Module):
+    """The detector; the arguments mirror the flax module's fields."""
+
+    def __init__(self, num_classes: int = 81, num_anchors: int = 12,
+                 class_agnostic: bool = True, use_relation: bool = True,
+                 use_learn_nms: bool = True, first_n: int = 100,
+                 num_thresh: int = 5, bbox_means=None, bbox_stds=None,
+                 backbone: str = "resnet101", head_dim: int = 1024,
+                 rcnn_feat_stride: int = 16,
+                 conv_dtype: torch.dtype = torch.bfloat16,
+                 head_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone = backbone
+        self.conv_dtype = conv_dtype
+        self.use_relation, self.use_learn_nms = use_relation, use_learn_nms
+        self.rcnn_feat_stride = rcnn_feat_stride
+        if backbone == "resnet101":
+            self.c4 = ResNet101C4(dtype=conv_dtype)
+            self.c5 = ResNet101C5()
+            c4_ch, c5_ch = 1024, 2048
+        else:
+            self.c4 = _TinyTrunk()
+            c4_ch = c5_ch = 32
+        self.rpn = RPNHead(c4_ch, num_anchors)
+        self.conv_new_1 = Conv2d(c5_ch, 256, 1)
+        self.fc_new_1 = Dense(7 * 7 * 256, head_dim, head_dtype)
+        self.fc_new_2 = Dense(head_dim, head_dim, head_dtype)
+        if use_relation:
+            self.relation_1 = RelationModule(1, head_dim, head_dim, head_dim,
+                                             dtype=head_dtype)
+            self.relation_2 = RelationModule(2, head_dim, head_dim, head_dim,
+                                             dtype=head_dtype)
+        self.cls_score = Dense(head_dim, num_classes)
+        num_reg = 2 if class_agnostic else num_classes
+        self.bbox_pred = Dense(head_dim, 4 * num_reg)
+        if use_learn_nms:
+            self.learn_nms_head = LearnNMSHead(
+                num_classes - 1, first_n, num_thresh, head_dim,
+                class_agnostic=class_agnostic, bbox_means=bbox_means,
+                bbox_stds=bbox_stds, attn_dtype=head_dtype)
+
+    def features_and_rpn(self, image: torch.Tensor):
+        """image [H, W, 3] or s2d [12, H/2, W/2] (mean-subtracted BGR); a 4D
+        input is an explicit batch. -> (head_feat [(B,) h, w, 256],
+        rpn_cls [(B,) h, w, A, 2], rpn_bbox [(B,) h, w, A, 4])."""
+        batched = image.dim() == 4
+        x = image if batched else image[None]
+        c4 = self.c4(x)                                        # NCHW
+        rpn_cls, rpn_bbox = self.rpn(c4)
+        c5 = self.c5(c4) if self.backbone == "resnet101" else c4
+        reduced = F.relu(self.conv_new_1(c5)).permute(0, 2, 3, 1)
+        if batched:
+            return reduced, rpn_cls, rpn_bbox
+        return reduced[0], rpn_cls[0], rpn_bbox[0]
+
+    def head(self, reduced_feat, rois, nongt_dim: int):
+        """ROI head: feat [h, w, 256], rois [N, 4] -> (cls_score [N, K],
+        bbox_pred [N, 4*num_reg], fc_all_2_relu [N, D])."""
+        pooled = roi_align_mxu(reduced_feat, rois, 1.0 / self.rcnn_feat_stride, 7)
+        flat = pooled.reshape(pooled.shape[0], -1).float()
+        if self.use_relation:
+            pos_t = extract_position_matrix_t(rois, nongt_dim)
+        x = self.fc_new_1(flat)
+        if self.use_relation:
+            x = x + self.relation_1(x, pos_t)
+        x = self.fc_new_2(F.relu(x))
+        if self.use_relation:
+            x = x + self.relation_2(x, pos_t)
+        fc2 = F.relu(x)
+        return self.cls_score(fc2), self.bbox_pred(fc2), fc2
+
+    def learn_nms(self, cls_score, bbox_pred, rois, roi_feat, im_info,
+                  class_thresh: float = 0.0):
+        return self.learn_nms_head(cls_score, bbox_pred, rois, roi_feat,
+                                   im_info, class_thresh)
+
+
+class _TinyTrunk(nn.Module):
+    """Stride-16 toy trunk of the tests: four 3x3/2 convs with flax 'SAME'
+    padding (asymmetric at stride 2). Accepts NHWC or s2d planar input."""
+
+    def __init__(self):
+        super().__init__()
+        for i in range(4):
+            setattr(self, f"tiny{i}", Conv2d(3 if i == 0 else 32, 32, 3,
+                                             stride=2))
+
+    def forward(self, x):
+        if x.dim() == 4 and x.shape[1] == 12:
+            B, K, Ho, Wo = x.shape
+            x = (x.reshape(B, 2, 2, 3, Ho, Wo).permute(0, 4, 1, 5, 2, 3)
+                 .reshape(B, 2 * Ho, 2 * Wo, 3))
+        x = x.permute(0, 3, 1, 2)
+        for i in range(4):
+            h, w = x.shape[-2:]
+            ph = max((-(-h // 2) - 1) * 2 + 3 - h, 0)
+            pw = max((-(-w // 2) - 1) * 2 + 3 - w, 0)
+            x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+            x = F.relu(getattr(self, f"tiny{i}")(x))
+        return x

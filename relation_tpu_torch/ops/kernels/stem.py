@@ -1,0 +1,65 @@
+"""Fused conv1 stem (s2d im2col + GEMM + folded BN + ReLU, bf16 out): CUDA
+kernel and plain version. Port of relation_tpu/ops/pallas/stem.py::
+stem_conv1_bn_relu; the kernel is csrc/stem.cu. Any batch and any Ho, Wo."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from relation_tpu_torch.ops.kernels import _build
+
+launches = 0          # kernel launches of stem_conv1_bn_relu (CUDA only)
+
+
+def stem_reference(s2d: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Plain version (relation_tpu stem_reference): 16 tap slices of the
+    (2,1)-padded s2d input, one [192, 64] matmul on bf16-rounded operands with
+    f32 accumulation, BN scale/bias, ReLU, bf16 out.
+    s2d [B, 12, Ho, Wo] f32 -> [B, 64, Ho, Wo] bf16."""
+    B, K, Ho, Wo = s2d.shape
+    sp = torch.nn.functional.pad(s2d.to(torch.bfloat16).float(), (2, 1, 2, 1))
+    taps = torch.cat([sp[:, :, dh:dh + Ho, dw:dw + Wo]
+                      for dh in range(4) for dw in range(4)], dim=1)
+    w = w4.to(torch.bfloat16).float()                           # [16K, 64]
+    acc = torch.einsum("ko,bkn->bon", w, taps.reshape(B, 16 * K, Ho * Wo))
+    y = torch.relu(acc * scale[None, :, None] + bias[None, :, None])
+    return y.to(torch.bfloat16).reshape(B, 64, Ho, Wo)
+
+
+def _launch(s2d, w4, scale, bias):
+    B, K, Ho, Wo = s2d.shape
+    if K != 12 or w4.shape != (192, 64) or scale.shape != (64,) \
+            or bias.shape != (64,):
+        raise ValueError(f"stem: shapes {tuple(s2d.shape)}, {tuple(w4.shape)}, "
+                         f"{tuple(scale.shape)}, {tuple(bias.shape)}")
+    if s2d.dtype != torch.float32 or scale.dtype != torch.float32 \
+            or bias.dtype != torch.float32:
+        raise TypeError("stem: expects a float32 image and BN vectors")
+    w4b = w4.to(torch.bfloat16).contiguous()
+    _build.check_inputs("stem", s2d, w4b, scale, bias)
+    out = torch.empty((B, 64, Ho, Wo), dtype=torch.bfloat16, device=s2d.device)
+    fn = _build.load("stem").stem_conv1_bn_relu
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    rc = fn(_build.ptr(s2d), _build.ptr(w4b), _build.ptr(scale),
+            _build.ptr(bias), _build.ptr(out), B, Ho, Wo,
+            _build.stream_ptr(s2d.device))
+    _build.check(rc, "stem_conv1_bn_relu")
+    return out
+
+
+def stem_conv1_bn_relu(s2d: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """relu(bn(conv1)) from the s2d planar image: s2d [B, 12, Ho, Wo] f32,
+    w4 [192, 64] (models/backbone.py::conv1_w4), folded BN scale/bias [64]
+    -> [B, 64, Ho, Wo] bf16. CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    global launches
+    if s2d.device.type != "cuda":
+        return stem_reference(s2d, w4, scale, bias)
+    out = _launch(s2d.contiguous(), w4, scale.contiguous(), bias.contiguous())
+    launches += 1
+    return out

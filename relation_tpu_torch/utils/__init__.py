@@ -1,0 +1,1 @@
+"""Subpackage of relation_tpu_torch (mirrors relation_tpu/utils)."""

@@ -6,22 +6,30 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   flagship shapes, on seeded random inputs, and times kernel, plain
+2. Holds each of the six kernels against its plain PyTorch version on the
+   card, at the flagship shapes, on seeded random inputs, and times kernel, plain
    version and (where one PyTorch call computes the same function) a
    library yardstick with CUDA events.
 3. Drives the flagship (ResNet-101 C4/C5, 81 classes, 6000 -> 300
    proposals, relation head, learned NMS with FIRST_N 100, 608x1024 s2d
-   input, init_params weights) through the port's entry points: four seeded
+   input, init_params weights) through the port's entry points: two seeded
    requests with the default class threshold (the data picks the
    learned-NMS branch), then one with 56 active classes (dense branch) and
-   one with 16 (skip kernel). Every kernel's launch counter, zeroed just
-   before, must be above 0.
+   one with 16 (skip kernel). Every inference kernel's launch counter,
+   zeroed just before, must be above 0.
 4. Runs the same requests with the plain versions in place of the kernels
    and holds the kernel path to them in the bands of tools/flagship_golden.py
-   (each top-50 detection matched by a same-class one at IoU >= 0.95,
+   (each top-50 detection matched by a same-class detection at IoU >= 0.95,
    |score delta| <= 2e-2).
-5. Prints one JSON line describing every kernel, then the device line.
+5. Trains the flagship at full width: a seeded batch of two s2d images with
+   three ground-truth boxes each, three steps with the dense learned-NMS
+   attention and two with the fully fused one. Every metric must be finite,
+   the loss must move, every trainable leaf must move and no frozen one,
+   the counters of the geometric-bias backward, the fused attention, the
+   stem, the NMS and the geometric-bias forward must be above 0, and a
+   first step's losses and update norm must agree with the same step run
+   through the plain versions within 1e-3 relative.
+6. Prints one JSON line describing every kernel, then the device line.
 
 Any failure exits non-zero without the last line. Needs no network; the
 kernels build into relation_tpu_torch/_build/.
@@ -144,6 +152,82 @@ def check_geom_bias(torch, dev, rng):
     return result  # the larger (learned-NMS) shape goes into the JSON line
 
 
+def check_geom_bias_bwd(torch, dev, rng):
+    from relation_tpu_torch.ops.embeddings import (
+        extract_multi_position_matrix_t, extract_position_matrix_t)
+    from relation_tpu_torch.ops.kernels import geom_bias as K
+    G = 16
+    w = torch.tensor(rng.randn(64, G) * 0.1, dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.randn(G) * 0.05, dtype=torch.float32, device=dev)
+    shapes = {
+        # head relation modules in training: 300 proposals + 16 ground-truth
+        # rows against 300 keys, twice per image
+        "head C=1 N=316 M=300": extract_position_matrix_t(
+            torch.tensor(random_boxes(rng, 316), device=dev), 300)[None],
+        # learned-NMS dense branch: [80, 4, 100, 100], once per image
+        "lnms C=80 N=M=100": extract_multi_position_matrix_t(
+            torch.tensor(np.stack([random_boxes(rng, 100) for _ in range(80)], 1),
+                         device=dev)),
+    }
+    result = None
+    for label, pos in shapes.items():
+        pos = pos.contiguous()
+        C, _, N, M = pos.shape
+        pairs = C * N * M
+        # the cotangent is zero close to the clamp (-1e-3 < acc < 2e-2):
+        # there 1/acc amplifies the last-bit difference between two f32 sums
+        # of acc (about 1e-7) beyond the 1e-4 band, up to 1e6 times at the
+        # clamp itself; clamped pairs and all others are held
+        acc_ref = K.geom_acc_reference(pos, w, b)
+        clear = (acc_ref > 2e-2) | (acc_ref < -1e-3)
+        gout = torch.tensor(rng.randn(C, G, N, M), dtype=torch.float32,
+                            device=dev) * clear
+        got = K._launch_bwd(pos, w, b, gout, 100.0)
+        again = K._launch_bwd(pos, w, b, gout, 100.0)
+        want = K.geom_bias_bwd_reference(pos, w, b, gout)
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for name, x, y, z in zip(("d_pos", "d_W", "d_b"), got, want, again):
+            err, top = float((x - y).abs().max()), float(y.abs().max())
+            errs.append(f"{name} {err:.3e}/{top:.3e}")
+            ok = ok and err <= 1e-4 * top and bool(torch.isfinite(x).all())
+            ok = ok and torch.equal(x, z)
+        # clamp decisions: b moved so that pair 0 of class 0 sits on the
+        # clamp in every head; the backward's acc must be the forward's,
+        # bit for bit, on every element
+        b_clamp = (b + 1e-6 - acc_ref[0, :, 0, 0]).contiguous()
+        ones = torch.ones_like(gout)
+        acc_fwd = K._launch(pos, w, b_clamp, 100.0, raw=True)
+        acc_bwd = K._launch_bwd(pos, w, b_clamp, ones, 100.0, need_pos=False,
+                                want_acc=True)[3]
+        torch.cuda.synchronize()
+        near = int(((acc_fwd - 1e-6).abs() < 1e-6).sum())
+        clamp_ok = torch.equal(acc_fwd, acc_bwd) and near >= G
+        ms = time_ms(torch, lambda: K._launch_bwd(pos, w, b, gout, 100.0))
+        ms_model = time_ms(torch, lambda: K._launch_bwd(pos, w, b, gout, 100.0,
+                                                        need_pos=False))
+        plain_ms = time_ms(torch, lambda: K.geom_bias_bwd_reference(
+            pos, w, b, gout), inner=2, reps=7)
+        # per pair: 32 sin/cos, three 64 x G products (acc, d_trig, d_W),
+        # the clamp/divide and the d_pos tail
+        bms, bby = bound(4 * ((4 + G + 4) * pairs + 2 * 65 * G),
+                         pairs * (3 * 2 * 64 * G + 32 * SINCOS_FLOPS + 4 * G
+                                  + 32 * 5), F32_PEAK)
+        log(f"[kernel] geom_bias_bwd {label}: max abs err / max "
+            f"{', '.join(errs)} (tol 1e-4 of max), two runs bit-equal, "
+            f"{'OK' if ok else 'FAIL'}; clamp: acc of forward and backward "
+            f"bit-equal on {pairs * G} elements, {near} within 1e-6 of the "
+            f"clamp, {'OK' if clamp_ok else 'FAIL'}; kernel_ms {ms:.4f} "
+            f"(without d_pos, as the model runs it: {ms_model:.4f}) plain_ms "
+            f"{plain_ms:.4f} library_ms n/a bound_us {bms * 1e3:.2f} ({bby})")
+        if not (ok and clamp_ok):
+            fail(f"geom_bias_bwd {label} disagrees with its plain version")
+        result = dict(max_abs_err=float((got[1] - want[1]).abs().max()), ms=ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                      library_ms=None)
+    return result  # the larger (learned-NMS) shape goes into the JSON line
+
+
 def check_nms(torch, dev, rng):
     from relation_tpu_torch.ops.kernels import nms_kernel as K
     n, np_pad, block, max_keep, thresh = 6000, 6144, 256, 300, 0.7
@@ -232,12 +316,8 @@ def check_stem(torch, dev, rng):
                 bound_by=bby, library_ms=library_ms)
 
 
-def check_attention(torch, dev, rng):
-    import torch.nn.functional as F
+def attention_inputs(torch, dev, rng, C=80, N=100, G=16, D=64, Fd=128, E=8):
     from relation_tpu_torch.ops.embeddings import extract_multi_position_matrix_t
-    from relation_tpu_torch.ops.kernels import geom_bias as GB
-    from relation_tpu_torch.ops.kernels import nms_attention as K
-    C, N, G, D, Fd, E, n_active = 80, 100, 16, 64, 128, 8, 16
 
     def tens(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -247,6 +327,35 @@ def check_attention(torch, dev, rng):
     v = tens(rng.randn(C, N, Fd))
     wg, bg = tens(rng.randn(64, G) * 0.1), tens(rng.randn(G) * 0.05)
     wl = tens(rng.randn(G, Fd, E) * 0.1)
+    return pos, q, k, v, wg, bg, wl
+
+
+def attention_bound(A, C, N, G, D, Fd, E):
+    """Bound of the fused attention over A computed classes of C."""
+    flops = A * (2 * N * N * D * G + N * N * (32 * SINCOS_FLOPS + 2 * 64 * G)
+                 + 5 * N * N * G + 2 * N * N * Fd * G + 2 * N * Fd * E * G)
+    nbytes = A * 4 * (4 * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
+        64 * G + G + G * Fd * E + C)
+    return bound(nbytes, flops, F32_PEAK)
+
+
+def sdpa_ms(torch, pos, q, k, v, wg, bg, N, G, D, Fd):
+    """Yardstick for the attention core: SDPA with the bias as a float mask."""
+    import torch.nn.functional as F
+    from relation_tpu_torch.ops.kernels import geom_bias as GB
+    A = q.shape[0]
+    bias = GB.geom_bias_reference(pos, wg, bg)
+    qs = q.reshape(A, N, G, D).transpose(1, 2)
+    ks = k.reshape(A, N, G, D).transpose(1, 2)
+    vs = v[:, None].expand(A, G, N, Fd)
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=bias))
+
+
+def check_attention(torch, dev, rng):
+    from relation_tpu_torch.ops.kernels import nms_attention as K
+    C, N, G, D, Fd, E, n_active = 80, 100, 16, 64, 128, 8, 16
+    pos, q, k, v, wg, bg, wl = attention_inputs(torch, dev, rng)
     act_np = np.zeros(C, np.int32)
     act_np[rng.choice(C, n_active, replace=False)] = 1
     active = torch.tensor(act_np, device=dev)
@@ -260,22 +369,12 @@ def check_attention(torch, dev, rng):
     ok = err <= tol
     ms = time_ms(torch, lambda: K.fused_nms_relation_attention_skip(*args))
     plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
-    # yardstick for the attention core: SDPA with the bias as a float mask
     idx = torch.nonzero(on).flatten()
-    bias = GB.geom_bias_reference(pos[idx], wg, bg)
-    qs = q[idx].reshape(n_active, N, G, D).transpose(1, 2)
-    ks = k[idx].reshape(n_active, N, G, D).transpose(1, 2)
-    vs = v[idx][:, None].expand(n_active, G, N, Fd)
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=bias))
-    A = n_active
-    flops = A * (2 * N * N * D * G + N * N * (32 * SINCOS_FLOPS + 2 * 64 * G)
-                 + 5 * N * N * G + 2 * N * N * Fd * G + 2 * N * Fd * E * G)
-    nbytes = A * 4 * (4 * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
-        64 * G + G + G * Fd * E + C)
-    bms, bby = bound(nbytes, flops, F32_PEAK)
-    log(f"[kernel] nms_attention_skip C={C} N={N} active={A}: max abs err on "
-        f"active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
+    library_ms = sdpa_ms(torch, pos[idx], q[idx], k[idx], v[idx], wg, bg,
+                         N, G, D, Fd)
+    bms, bby = attention_bound(n_active, C, N, G, D, Fd, E)
+    log(f"[kernel] nms_attention_skip C={C} N={N} active={n_active}: max abs "
+        f"err on active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
         f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
         f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
     if not ok:
@@ -284,14 +383,68 @@ def check_attention(torch, dev, rng):
                 bound_by=bby, library_ms=library_ms)
 
 
+def check_attention_full(torch, dev, rng):
+    from relation_tpu_torch.ops.kernels import nms_attention as K
+    C, N, G, D, Fd, E = 80, 100, 16, 64, 128, 8
+    args = attention_inputs(torch, dev, rng)
+    got = K.fused_nms_relation_attention(*args)
+    want = K.nms_relation_attention_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    ms = time_ms(torch, lambda: K.fused_nms_relation_attention(*args))
+    plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
+    library_ms = sdpa_ms(torch, *args[:6], N, G, D, Fd)
+    bms, bby = attention_bound(C, C, N, G, D, Fd, E)
+    log(f"[kernel] nms_attention_full C={C} N={N}: max abs err {err:.3e} "
+        f"(tol {tol:.1e}) {'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
+        f"bound_us {bms * 1e3:.2f} ({bby})")
+    if not ok:
+        fail("fused_nms_relation_attention disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=library_ms)
+
+
 # --------------------------------------------------------------------------
 # phases 3-4: the flagship through the port's entry points
 # --------------------------------------------------------------------------
 
+# name in the JSON line -> (module of relation_tpu_torch.ops.kernels, counter)
+COUNTERS = {"geom_bias": ("geom_bias", "launches"),
+            "nms_keep_sorted": ("nms_kernel", "launches"),
+            "stem_conv1_bn_relu": ("stem", "launches"),
+            "fused_nms_relation_attention_skip": ("nms_attention", "launches"),
+            "geom_bias_bwd": ("geom_bias", "bwd_launches"),
+            "fused_nms_relation_attention": ("nms_attention", "full_launches")}
+INFERENCE_KERNELS = ("geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu",
+                     "fused_nms_relation_attention_skip")
+TRAINING_KERNELS = ("geom_bias_bwd", "fused_nms_relation_attention")
+
+
+def _counter(name):
+    import importlib
+    mod, attr = COUNTERS[name]
+    return importlib.import_module(f"relation_tpu_torch.ops.kernels.{mod}"), attr
+
+
+def read_counter(name) -> int:
+    mod, attr = _counter(name)
+    return getattr(mod, attr)
+
+
+def zero_counters() -> None:
+    for name in COUNTERS:
+        mod, attr = _counter(name)
+        setattr(mod, attr, 0)
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's four kernel calls to their plain versions (this
-    harness's comparison only; the port itself dispatches by device)."""
+    """Route the model's kernel calls to their plain versions, which autograd
+    differentiates (this harness's comparison only; the port itself
+    dispatches by device)."""
     import relation_tpu_torch.models.backbone as bb
     import relation_tpu_torch.models.relation as rel
     import relation_tpu_torch.ops.nms as nms
@@ -302,6 +455,9 @@ def plain_kernels():
              (rel, "fused_geometric_bias", geom_bias.geom_bias_reference),
              (rel, "fused_nms_relation_attention_skip",
               nms_attention.nms_relation_attention_reference),
+             (rel, "fused_nms_relation_attention",
+              lambda *a: nms_attention.nms_relation_attention_reference(
+                  *a[:7], None, *a[7:])),
              (nms, "nms_keep_sorted", nms_kernel.nms_keep_sorted_reference)]
     saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
     for m, a, f in swaps:
@@ -341,7 +497,7 @@ def match_dets(ref, new):
     return errs
 
 
-def run_flagship(torch, dev, n_images: int = 4, n_active: int = 16,
+def run_flagship(torch, dev, n_images: int = 2, n_active: int = 16,
                  tiny: bool = False):
     """The flagship requests, kernel path then plain path. ``tiny`` (a
     rehearsal on the CPU) takes the tiny trunk and a 64x128 image."""
@@ -349,11 +505,8 @@ def run_flagship(torch, dev, n_images: int = 4, n_active: int = 16,
     from relation_tpu_torch.core.predictor import make_predict_fn
     from relation_tpu_torch.core.trainer import build_model
     from relation_tpu_torch.entry import BUCKET, flagship_cfg
-    from relation_tpu_torch.ops.kernels import (geom_bias, nms_attention,
-                                                nms_kernel, stem)
-    modules = {"geom_bias": geom_bias, "nms_keep_sorted": nms_kernel,
-               "stem_conv1_bn_relu": stem,
-               "fused_nms_relation_attention_skip": nms_attention}
+    from relation_tpu_torch.ops.kernels import nms_attention
+    counters = {k: COUNTERS[k] for k in INFERENCE_KERNELS}
     cfg = flagship_cfg(tiny_shapes=tiny)
     if tiny:
         # the tiny trunk's random head scores sit below the 1e-3 floor
@@ -403,10 +556,9 @@ def run_flagship(torch, dev, n_images: int = 4, n_active: int = 16,
             labels.append(f"{label}: {times[-1]:.3f} ms")
         return outs, times, labels
 
-    for mod in modules.values():
-        mod.launches = 0
+    zero_counters()
     outs, times, labels = run(True)
-    launches = {k: mod.launches for k, mod in modules.items()}
+    launches = {k: read_counter(k) for k in counters}
     n_dets = [int((d[:, 0] >= 0).sum()) for d in outs]
     log(f"[e2e] kernel path: {'; '.join(labels)}; median ms/image of the "
         f"{n_images} default requests {statistics.median(times[:n_images]):.3f}; "
@@ -419,15 +571,16 @@ def run_flagship(torch, dev, n_images: int = 4, n_active: int = 16,
             fail(f"bad detections: shape {d.shape}, finite {np.isfinite(d).all()}")
     if min(n_dets) == 0:
         fail("a request returned no detections")
-    zero = [k for k, v in launches.items() if v <= 0]
+    # the tiny trunk of a rehearsal has no conv1 stem
+    zero = [k for k, v in launches.items()
+            if v <= 0 and not (tiny and k == "stem_conv1_bn_relu")]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
 
     with plain_kernels():
-        for mod in modules.values():
-            mod.launches = 0
+        zero_counters()
         plain_outs, plain_times, plain_labels = run(False)
-        stray = {k: mod.launches for k, mod in modules.items() if mod.launches}
+        stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
     if stray:
         fail(f"plain run launched kernels: {stray}")
     errs = []
@@ -442,6 +595,140 @@ def run_flagship(torch, dev, n_images: int = 4, n_active: int = 16,
         fail("kernel path outside the flagship bands of the plain path")
     times = times[:n_images]
     return launches, statistics.median(times)
+
+
+# --------------------------------------------------------------------------
+# phase 5: the flagship train step
+# --------------------------------------------------------------------------
+
+def training_batch(H, W, B=2, n_gt=3, max_gt=16):
+    """Seeded s2d images [B, 12, H/2, W/2] with n_gt ground-truth boxes each
+    (padded to max_gt rows), inside an image of 600/608 x 1000/1024 of the
+    bucket."""
+    rng = np.random.RandomState(11)
+    im_h, im_w = H * 600 // 608, W * 1000 // 1024
+    gt = np.zeros((B, max_gt, 5), np.float32)
+    gv = np.zeros((B, max_gt), bool)
+    for b in range(B):
+        wh = rng.uniform([W * 0.08, H * 0.1], [W * 0.4, H * 0.5], (n_gt, 2))
+        xy = rng.uniform([0, 0], [im_w - 1, im_h - 1] - wh, (n_gt, 2))
+        gt[b, :n_gt, :4] = np.concatenate([xy, xy + wh], 1)
+        gt[b, :n_gt, 4] = rng.randint(1, 81, n_gt)
+        gv[b, :n_gt] = True
+    return {"image": (rng.randn(B, 12, H // 2, W // 2) * 40).astype(np.float32),
+            "im_info": np.tile([[im_h, im_w, 1.0]], (B, 1)).astype(np.float32),
+            "gt_boxes": gt, "gt_valid": gv}
+
+
+def run_training(torch, dev, card: str = "", tiny: bool = False):
+    """Five train steps of the flagship on the kernels, then one unclipped
+    step from the same start on the kernels and on the plain versions. ``tiny`` (a rehearsal on the CPU) takes the
+    tiny trunk and a 64x128 image. Returns the launch counts."""
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.trainer import (build_model, create_train_state,
+                                                 make_train_step, trainable_mask)
+    from relation_tpu_torch.entry import BUCKET, flagship_cfg
+    H, W = (64, 128) if tiny else BUCKET
+    batch = training_batch(H, W)
+    B = batch["image"].shape[0]
+
+    def fresh(clip):
+        cfg = flagship_cfg(tiny_shapes=tiny)
+        cfg.TPU.GRAD_CLIP = clip
+        model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+        return (model, create_train_state(model, cfg, seed=0),
+                make_train_step(model, cfg, device=dev))
+
+    def one_step(step, state):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return {k: float(v) for k, v in m.items()}, ms
+
+    def update_norm(model, before):
+        sq = sum(float(((p.detach().double() - before[n].double()) ** 2).sum())
+                 for n, p in model.named_parameters())
+        return sq ** 0.5
+
+    def snapshot(model):
+        return {n: v.detach().clone() for n, v in model.state_dict().items()}
+
+    # init_params leaves every BatchNorm at identity, so the random trunk's
+    # activations reach several hundred and an unclipped second step
+    # diverges: the five steps run with the trainer's global-norm clip
+    # (TPU.GRAD_CLIP) at 10; the one-step comparison below runs without it
+    model, state, step = fresh(10.0)
+    start = snapshot(model)
+    mask = trainable_mask(model, tuple(flagship_cfg().network.FIXED_PARAMS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    history, times = [], []
+    for i in range(5):
+        # steps 0-2 on the dense learned-NMS attention, 3-4 on the fused one
+        model.learn_nms_head.NMSRelationModule_0.fully_fused = i >= 3
+        m, ms = one_step(step, state)
+        history.append(m)
+        times.append(ms)
+    launches = {k: read_counter(k) for k in COUNTERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["total_loss"] for m in history]
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            fail(f"train step {i}: non-finite {bad}; total_loss per step {losses}")
+    if losses[-1] == losses[0]:
+        fail("total_loss did not move over the train steps")
+    end = model.state_dict()
+    still = [n for n, on in mask.items() if on and torch.equal(end[n], start[n])]
+    strayed = [n for n, on in mask.items()
+               if not on and not torch.equal(end[n], start[n])]
+    if still or strayed:
+        fail(f"trainable leaves that did not move: {still[:5]} ({len(still)}); "
+             f"frozen leaves that moved: {strayed[:5]} ({len(strayed)})")
+    want = {"geom_bias_bwd": 3 * B * 3 + 2 * B * 2,
+            "fused_nms_relation_attention": 2 * B,
+            "stem_conv1_bn_relu": 0 if tiny else 5, "nms_keep_sorted": 5 * B,
+            "geom_bias": 3 * B * 3 + 2 * B * 2}
+    short = {k: (launches[k], n) for k, n in want.items() if launches[k] < max(n, 1)
+             and not (tiny and k == "stem_conv1_bn_relu")}
+    if short:
+        fail(f"kernels launched too rarely in training (got, expected): {short}")
+    log(f"[train] kernel path, B={B}: total_loss per step "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; ms/step "
+        f"{', '.join(f'{x:.3f}' for x in times)}; median after one warm-up: dense "
+        f"{statistics.median(times[1:3]):.3f} ms/step, fully fused "
+        f"{times[4]:.3f} ms/step; peak memory {peak_gb:.3f} GiB; "
+        f"{sum(mask.values())} trainable leaves moved, "
+        f"{len(mask) - sum(mask.values())} frozen leaves still; launches "
+        f"{launches}; on {card}")
+
+    del model, state, step, end
+    model, state, step = fresh(0.0)
+    first_m, _ = one_step(step, state)
+    first_norm = update_norm(model, start)
+    del model, state, step
+    with plain_kernels():
+        model, state, step = fresh(0.0)
+        zero_counters()
+        plain_m, plain_ms = one_step(step, state)
+        stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
+        plain_norm = update_norm(model, start)
+    if stray:
+        fail(f"plain train step launched kernels: {stray}")
+    worst = max((abs(first_m[k] - v) / max(abs(v), 1e-6), k)
+                for k, v in plain_m.items() if k.endswith("loss"))
+    norm_err = abs(first_norm - plain_norm) / plain_norm
+    ok = worst[0] <= 1e-3 and norm_err <= 1e-3
+    log(f"[train] one unclipped step, plain path: total_loss "
+        f"{plain_m['total_loss']:.6f} ({plain_ms:.3f} ms, first call); kernel "
+        f"path: total_loss {first_m['total_loss']:.6f}; kernel vs plain: worst loss "
+        f"{worst[1]} rel {worst[0]:.2e}, update norm {first_norm:.6e} vs "
+        f"{plain_norm:.6e} rel {norm_err:.2e} (tol 1e-3) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail("the kernel train step disagrees with the plain train step")
+    return launches
 
 
 def main() -> None:
@@ -474,33 +761,45 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     build_s = _build.build_all()
-    log(f"[build] {len(_build.SOURCES)} kernels built in {build_s:.1f} s")
+    log(f"[build] {len(_build.SOURCES)} sources ({len(COUNTERS)} kernels) "
+        f"built in {build_s:.1f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    # the four kernels of the inference path share one seeded stream, in
+    # this order; each later kernel draws from a stream of its own
     rng = np.random.RandomState(0)
+    csrc = "relation_tpu_torch/csrc/"
+    pallas = "relation_tpu/ops/pallas/"
     checks = {
-        "geom_bias": ("relation_tpu_torch/csrc/geom_bias.cu",
-                      "relation_tpu/ops/pallas/geom_bias.py:275", check_geom_bias),
-        "nms_keep_sorted": ("relation_tpu_torch/csrc/nms_kernel.cu",
-                            "relation_tpu/ops/pallas/nms_kernel.py:118", check_nms),
-        "stem_conv1_bn_relu": ("relation_tpu_torch/csrc/stem.cu",
-                               "relation_tpu/ops/pallas/stem.py:67", check_stem),
+        "geom_bias": (csrc + "geom_bias.cu", pallas + "geom_bias.py:275",
+                      check_geom_bias, rng),
+        "nms_keep_sorted": (csrc + "nms_kernel.cu", pallas + "nms_kernel.py:118",
+                            check_nms, rng),
+        "stem_conv1_bn_relu": (csrc + "stem.cu", pallas + "stem.py:67",
+                               check_stem, rng),
         "fused_nms_relation_attention_skip": (
-            "relation_tpu_torch/csrc/nms_attention.cu",
-            "relation_tpu/ops/pallas/nms_attention.py:317", check_attention),
+            csrc + "nms_attention.cu", pallas + "nms_attention.py:317",
+            check_attention, rng),
+        "geom_bias_bwd": (csrc + "geom_bias_bwd.cu", pallas + "geom_bias.py:219",
+                          check_geom_bias_bwd, np.random.RandomState(1)),
+        "fused_nms_relation_attention": (
+            csrc + "nms_attention.cu", pallas + "nms_attention.py:136",
+            check_attention_full, np.random.RandomState(2)),
     }
-    results = {name: fn(torch, dev, rng) for name, (_, _, fn) in checks.items()}
+    results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
     if args.phase == "kernels":
         log("[done] kernel phase only: no device line")
         return
 
     launches, ms_image = run_flagship(torch, dev)
     log(f"[e2e] flagship median ms/image {ms_image:.3f} on {card}")
+    train_launches = run_training(torch, dev, card)
+    launches.update({k: train_launches[k] for k in TRAINING_KERNELS})
     kernels = []
-    for name, (source, replaces, _) in checks.items():
+    for name, (source, replaces, _, _) in checks.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

@@ -9,6 +9,10 @@ flax path ``a/b/leaf`` becomes the torch key ``a.b.leaf`` with
   - ``bias``, the grouped ``*_weight`` [g, f, e] / ``*_bias`` and the four
     FrozenBatchNorm vectors kept as they are.
 
+``to_jax_params`` is the inverse, from a state_dict (or any dict of the same
+keys, such as gradients) to flat flax paths, so that updated parameters can
+be compared leaf by leaf.
+
 The caller flattens the tree (``flax.traverse_util.flatten_dict(params,
 sep="/")``), so this module needs no flax. ``init_params`` fills a model
 from a seed with numpy, at the scales of the flax initialisers.
@@ -54,6 +58,27 @@ def from_jax_params(flat: dict, model: torch.nn.Module) -> dict:
            for k in want if tuple(out[k].shape) != tuple(want[k].shape)]
     if bad:
         raise ValueError(f"from_jax_params: shape mismatch {bad[:8]}")
+    return out
+
+
+def to_jax_params(state_dict: dict) -> dict:
+    """state_dict key -> tensor, to {flax '/'-joined path: float32 numpy
+    array}: the inverse of ``from_jax_params``. A 4-D ``weight`` is a conv
+    kernel (OIHW -> HWIO ``kernel``), a 2-D ``weight`` a dense kernel
+    ([out, in] -> [in, out]); every other leaf keeps its name and layout."""
+    out = {}
+    for key, value in state_dict.items():
+        v = value.detach().to(torch.float32).cpu().numpy()
+        parts = key.split(".")
+        if parts[-1] == "weight":
+            if v.ndim == 4:
+                v = v.transpose(2, 3, 1, 0)
+            elif v.ndim == 2:
+                v = v.T
+            else:
+                raise ValueError(f"{key}: weight of unexpected rank {v.ndim}")
+            parts[-1] = "kernel"
+        out["/".join(parts)] = np.ascontiguousarray(v)
     return out
 
 

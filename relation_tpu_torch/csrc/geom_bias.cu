@@ -22,7 +22,9 @@
 
 namespace {
 
-template <int G>
+// RAW writes the pre-clamp value acc + b instead of its clamped log: the
+// card tests hold the backward's clamp decisions against it, bit for bit.
+template <int G, bool RAW>
 __global__ void __launch_bounds__(256)
 geom_bias_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ w,
                      const float* __restrict__ b, float* __restrict__ out,
@@ -48,15 +50,32 @@ geom_bias_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ w,
 
   float* oc = out + c * G * nm_total + nm;
 #pragma unroll
-  for (int g = 0; g < G; ++g) oc[g * nm_total] = geom_log_clamp(acc[g], sb[g]);
+  for (int g = 0; g < G; ++g)
+    oc[g * nm_total] = RAW ? geom_add_bias(acc[g], sb[g])
+                           : geom_log_clamp(acc[g], sb[g]);
 }
 
-template <int G>
+template <int G, bool RAW>
 cudaError_t launch(const float* pos, const float* w, const float* b, float* out,
                    int C, long nm, float scale, cudaStream_t stream) {
   dim3 grid((unsigned)((nm + 255) / 256), (unsigned)C);
-  geom_bias_fwd_kernel<G><<<grid, 256, 0, stream>>>(pos, w, b, out, nm, scale);
+  geom_bias_fwd_kernel<G, RAW><<<grid, 256, 0, stream>>>(pos, w, b, out, nm,
+                                                         scale);
   return cudaGetLastError();
+}
+
+template <bool RAW>
+int dispatch(const float* pos, const float* w, const float* b, float* out,
+             int C, int G, long nm, float scale, void* stream) {
+  if (C == 0 || nm == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (G) {
+    case 4: return launch<4, RAW>(pos, w, b, out, C, nm, scale, s);
+    case 8: return launch<8, RAW>(pos, w, b, out, C, nm, scale, s);
+    case 16: return launch<16, RAW>(pos, w, b, out, C, nm, scale, s);
+    case 32: return launch<32, RAW>(pos, w, b, out, C, nm, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -64,13 +83,12 @@ cudaError_t launch(const float* pos, const float* w, const float* b, float* out,
 extern "C" int geom_bias_fwd(const float* pos, const float* w, const float* b,
                              float* out, int C, int G, long nm, float scale,
                              void* stream) {
-  if (C == 0 || nm == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (G) {
-    case 4: return launch<4>(pos, w, b, out, C, nm, scale, s);
-    case 8: return launch<8>(pos, w, b, out, C, nm, scale, s);
-    case 16: return launch<16>(pos, w, b, out, C, nm, scale, s);
-    case 32: return launch<32>(pos, w, b, out, C, nm, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(pos, w, b, out, C, G, nm, scale, stream);
+}
+
+// The forward's acc + b before the clamp and the log (tests only).
+extern "C" int geom_bias_acc(const float* pos, const float* w, const float* b,
+                             float* out, int C, int G, long nm, float scale,
+                             void* stream) {
+  return dispatch<true>(pos, w, b, out, C, G, nm, scale, stream);
 }

@@ -1,8 +1,12 @@
-// Learned-NMS relation attention with class skipping, fully fused.
+// Learned-NMS relation attention, fully fused, with or without class
+// skipping.
 //
 // Replaces relation_tpu/ops/pallas/nms_attention.py::
-// fused_nms_relation_attention_skip (the Pallas _attention_kernel_skip). For
-// each active class c and head g:
+// fused_nms_relation_attention_skip (the Pallas _attention_kernel_skip; entry
+// nms_attention_skip) and ::fused_nms_relation_attention (_attention_kernel,
+// every class computed: the training form; entry nms_attention_full). One
+// kernel body serves both: the full form passes no active mask. For each
+// active class c and head g:
 //
 //   bias   = log(max(sincos_emb(100 * pos[c]) . Wg[:, g] + bg[g], 1e-6))   [N, N]
 //   attn   = softmax(q_g k_g^T / sqrt(D) + bias)                           [N, N]
@@ -19,6 +23,9 @@
 // the 64-term bias dot and 32 sin/cos per pair 28 M), and about 1.1 MB of
 // input; at 16 active classes that is about 22 us of f32 issue rate against
 // 5 us of memory, so arithmetic bounds it.
+//
+// At all 80 classes (the full form) it is 5 times that work: 1280 blocks of
+// one per SM, in about 10 waves.
 //
 // Design: grid (C, G), one block per (class, head); an inactive class returns
 // at once. q_g^T, k_g^T, v and the [N, N] score tile sit in shared memory
@@ -76,8 +83,9 @@ nms_attention_kernel(const float* __restrict__ pos, const float* __restrict__ q,
   const int c = blockIdx.x;
   const int g = blockIdx.y;
   // the whole cluster shares c, so it returns together and no block is
-  // left waiting at a cluster barrier
-  if (active[c] == 0) return;
+  // left waiting at a cluster barrier; with no mask every class is computed
+  // and every cluster reaches both barriers whole
+  if (active != nullptr && active[c] == 0) return;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();   // cluster dims (1, CS, 1)
@@ -280,8 +288,9 @@ cudaError_t launch(const float* pos, const float* q, const float* k,
 }  // namespace
 
 // Cluster size: the largest of 8, 4, 2, 1 that divides G (8 is the largest
-// cluster every Hopper part guarantees).
-extern "C" int nms_attention_skip(const float* pos, const float* q,
+// cluster every Hopper part guarantees). active == nullptr computes every
+// class.
+static int nms_attention_dispatch(const float* pos, const float* q,
                                   const float* k, const float* v,
                                   const float* wg, const float* bg,
                                   const float* wl, const int* active,
@@ -298,4 +307,25 @@ extern "C" int nms_attention_skip(const float* pos, const float* q,
   if (G % 2 == 0)
     return (int)launch<2>(pos, q, k, v, wg, bg, wl, active, out, C, N, G, D, F, E, scale, s);
   return (int)launch<1>(pos, q, k, v, wg, bg, wl, active, out, C, N, G, D, F, E, scale, s);
+}
+
+extern "C" int nms_attention_skip(const float* pos, const float* q,
+                                  const float* k, const float* v,
+                                  const float* wg, const float* bg,
+                                  const float* wl, const int* active,
+                                  float* out, int C, int N, int G, int D,
+                                  int F, int E, float scale, void* stream) {
+  if (active == nullptr) return (int)cudaErrorInvalidValue;
+  return nms_attention_dispatch(pos, q, k, v, wg, bg, wl, active, out, C, N, G,
+                                D, F, E, scale, stream);
+}
+
+extern "C" int nms_attention_full(const float* pos, const float* q,
+                                  const float* k, const float* v,
+                                  const float* wg, const float* bg,
+                                  const float* wl, float* out, int C, int N,
+                                  int G, int D, int F, int E, float scale,
+                                  void* stream) {
+  return nms_attention_dispatch(pos, q, k, v, wg, bg, wl, nullptr, out, C, N,
+                                G, D, F, E, scale, stream);
 }

@@ -54,11 +54,35 @@ class FrozenBatchNorm(nn.Module):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d that computes in the dtype of its weight: the input is cast
-    to it (the flax ``dtype=`` policy)."""
+    """nn.Conv2d with f32 master weights that computes in ``compute_dtype``
+    (the flax ``dtype=`` / ``param_dtype=float32`` policy): the input and the
+    parameters are cast at the call. None computes in the weight's dtype.
+
+    A weight that needs no gradient (inference, a frozen stage) is cast once
+    and the copy is kept, keyed like FrozenBatchNorm's fold on the
+    parameter's version, so a request pays no cast; a weight being trained
+    is cast at every call, with the gradient flowing through the cast to the
+    f32 master."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def _cast(self, p: torch.Tensor, dt: torch.dtype, slot: str):
+        if p is None or p.dtype == dt:
+            return p
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(dt)
+        key = (dt, p.device, p.data_ptr(), p._version,
+               torch.is_inference_mode_enabled())
+        cache = self.__dict__.setdefault("_cast_cache", {})
+        hit = cache.get(slot)
+        if hit is None or hit[0] != key:
+            hit = cache[slot] = (key, p.detach().to(dt))
+        return hit[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype or self.weight.dtype
+        return self._conv_forward(x.to(dt), self._cast(self.weight, dt, "w"),
+                                  self._cast(self.bias, dt, "b"))
 
 
 def _conv(cin, cout, kernel, stride=1, dilation=1, bias=False):
@@ -142,9 +166,16 @@ class ResNet101C4(nn.Module):
     in f32. res4_folded / trunk_folded (TPU-only fused Pallas stacks) are
     not ported."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 freeze_through: int = 0):
         super().__init__()
         self.dtype = dtype
+        # no gradient below the end of this stage (0 = none; 2, 3 or 4): the
+        # stem and the stages up to it run under no_grad, the counterpart of
+        # the JAX package's stop_gradient boundary. The parameters there are
+        # frozen by the trainer, so no gradient is lost, and none of their
+        # activations is kept for a backward.
+        self.freeze_through = freeze_through
         self.conv1 = _Conv1Weights()
         self.bn_conv1 = FrozenBatchNorm(64)
         i, cin = 0, 64
@@ -155,6 +186,11 @@ class ResNet101C4(nn.Module):
                     has_proj=(u == 0)))
                 i, cin = i + 1, out
         self.n_units = i
+
+    def _frozen_units(self) -> int:
+        """Units of the stages 2..freeze_through."""
+        return sum(n for stage, (n, _, _, _) in _PLAN.items()
+                   if stage <= self.freeze_through)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         w7 = self.conv1.weight
@@ -180,8 +216,13 @@ class ResNet101C4(nn.Module):
         return F.max_pool2d(out, 3, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stem(x)
-        for i in range(self.n_units):
+        frozen = self._frozen_units()
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and self.freeze_through < 2):
+            x = self.stem(x)
+            for i in range(frozen):
+                x = getattr(self, f"Bottleneck_{i}")(x)
+        for i in range(frozen, self.n_units):
             x = getattr(self, f"Bottleneck_{i}")(x)
         return x
 

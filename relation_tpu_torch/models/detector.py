@@ -30,14 +30,16 @@ class RelationRCNN(nn.Module):
                  backbone: str = "resnet101", head_dim: int = 1024,
                  rcnn_feat_stride: int = 16,
                  conv_dtype: torch.dtype = torch.bfloat16,
-                 head_dtype: torch.dtype = torch.float32):
+                 head_dtype: torch.dtype = torch.float32,
+                 freeze_through: int = 0):
         super().__init__()
         self.backbone = backbone
         self.conv_dtype = conv_dtype
         self.use_relation, self.use_learn_nms = use_relation, use_learn_nms
         self.rcnn_feat_stride = rcnn_feat_stride
         if backbone == "resnet101":
-            self.c4 = ResNet101C4(dtype=conv_dtype)
+            self.c4 = ResNet101C4(dtype=conv_dtype,
+                                  freeze_through=freeze_through)
             self.c5 = ResNet101C5()
             c4_ch, c5_ch = 1024, 2048
         else:

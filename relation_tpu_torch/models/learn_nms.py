@@ -1,9 +1,14 @@
-"""Learned NMS ("duplicate removal") head, inference (port of
+"""Learned NMS ("duplicate removal") head (port of
 relation_tpu/models/learn_nms.py; reference symbols/..._learn_nms.py:412-551
 and operator_py/learn_nms.py:219-405).
 
-The per-class rank gathers are direct ``gather``s here: the JAX package's
-one-hot contractions are a TPU form of the same exact selection.
+The per-class rank gathers are direct gathers here (ops/gathers.py): the JAX
+package's one-hot contractions are a TPU form of the same exact selection,
+forward and backward.
+
+Gradient flow as in the reference: bbox_pred is blocked before refine_bbox
+(:428); sorted_score is not (:499-501), so the loss reaches the classifier
+through the multiplicative score fusion.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import torch.nn as nn
 
 from relation_tpu_torch.models.relation import Dense, NMSRelationModule
 from relation_tpu_torch.ops.boxes import refine_bbox
+from relation_tpu_torch.ops.gathers import take_along0, take_rows
 from relation_tpu_torch.ops.embeddings import (extract_multi_position_matrix_t,
                                                extract_rank_embedding)
 
@@ -47,9 +53,9 @@ class LearnNMSHead(nn.Module):
         prob_nobg = torch.softmax(cls_score, dim=-1)[:, 1:]       # [N, C]
         # stable descending sort per class (jnp.argsort(-p, axis=0))
         rank_idx = torch.argsort(-prob_nobg, dim=0, stable=True)[:F_]  # [F, C]
-        sorted_score = torch.gather(prob_nobg, 0, rank_idx)
+        sorted_score = take_along0(prob_nobg, rank_idx)
         if self.class_agnostic:
-            sorted_bbox = refined[:, :, 0][rank_idx]              # [F, C, 4]
+            sorted_bbox = take_rows(refined[:, :, 0], rank_idx)   # [F, C, 4]
         else:
             refined_cls = refined.permute(0, 2, 1)[:, :C, :]      # [N, C, 4]
             sorted_bbox = refined_cls[rank_idx, torch.arange(
@@ -59,7 +65,7 @@ class LearnNMSHead(nn.Module):
             F_, 1024, device=cls_score.device))                   # [F, 128]
         pos_t = extract_multi_position_matrix_t(sorted_bbox)      # [C,4,F,F]
         roi_emb = self.roi_feat_embedding(roi_feat).float()       # [N, 128]
-        emb = roi_emb[rank_idx] + rank_feat[:, None, :]           # [F, C, 128]
+        emb = take_rows(roi_emb, rank_idx) + rank_feat[:, None, :]  # [F, C, 128]
 
         # inference valid-class filter (reference learn_nms.py:296-309)
         active = None

@@ -2,9 +2,11 @@
 a log-clamped geometric bias (port of relation_tpu/models/relation.py;
 reference attention_module_multi_head / attention_module_nms_multi_head).
 
-The geometric bias runs through ops/kernels/geom_bias.py, the learned-NMS
-attention of a request with at most C/2 active classes through
-ops/kernels/nms_attention.py. Parameter names and layouts follow the flax
+The geometric bias runs through ops/kernels/geom_bias.py (forward and
+backward), the learned-NMS attention of a request with at most C/2 active
+classes through the skip kernel of ops/kernels/nms_attention.py, and with
+``fully_fused`` the unfiltered (training) call through its differentiable
+form over every class. Parameter names and layouts follow the flax
 tree: pair_pos_fc1 and the query/key denses are ``nn.Linear``s ([out, in]),
 linear_out is a raw [groups, feat, out/groups] weight.
 """
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 
 from relation_tpu_torch.ops.kernels.geom_bias import fused_geometric_bias
 from relation_tpu_torch.ops.kernels.nms_attention import (
-    fused_nms_relation_attention_skip)
+    fused_nms_relation_attention, fused_nms_relation_attention_skip)
 
 
 class Dense(nn.Linear):
@@ -82,20 +84,26 @@ class RelationModule(nn.Module):
 
 
 class NMSRelationModule(nn.Module):
-    """Per-class relation attention of the learned-NMS head, inference
-    branches: roi_feat [N, C, F], position_mat_t [C, 4, N, N], optional
-    active [C] -> [N, C, dim_out].
+    """Per-class relation attention of the learned-NMS head:
+    roi_feat [N, C, F], position_mat_t [C, 4, N, N], optional active [C]
+    -> [N, C, dim_out].
 
-    With ``active`` and at most C/2 active classes (a host-side decision on
-    one scalar) the fused skip kernel runs and leaves inactive classes
-    unwritten; otherwise the dense path runs: fused geometric bias, then
-    batched attention. The XLA compact path and fully_fused are not ported."""
+    With ``active`` (inference) and at most C/2 active classes (a host-side
+    decision on one scalar) the fused skip kernel runs and leaves inactive
+    classes unwritten; otherwise the dense path runs: fused geometric bias,
+    then batched attention. Without ``active`` (training computes every
+    class) ``fully_fused`` (a field, off by default as in the JAX package;
+    set it on the built module) picks the single fused kernel over all
+    classes, in f32, in place of the dense path; both carry gradients. The XLA
+    compact path is not ported."""
 
     def __init__(self, index: int, feat_dim: int, dim_qk: int = 1024,
                  dim_out: int = 128, groups: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fully_fused: bool = False):
         super().__init__()
         self.index, self.groups = index, groups
+        self.fully_fused = fully_fused
         self.dim_qk, self.dim_out = dim_qk, dim_out
         setattr(self, f"nms_query_{index}", Dense(feat_dim, dim_qk, dtype))
         setattr(self, f"nms_key_{index}", Dense(feat_dim, dim_qk, dtype))
@@ -119,6 +127,9 @@ class NMSRelationModule(nn.Module):
             y = fused_nms_relation_attention_skip(
                 position_mat_t, q.float(), k.float(), feat.float(), wg, bg,
                 wl, active)
+        elif active is None and self.fully_fused:
+            y = fused_nms_relation_attention(
+                position_mat_t, q.float(), k.float(), feat.float(), wg, bg, wl)
         else:
             y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl, g)
         y = y + getattr(self, f"nms_linear_out_{i}_bias")

@@ -20,6 +20,19 @@ def box_ctr(boxes: torch.Tensor):
     return boxes[..., 0] + 0.5 * (w - 1.0), boxes[..., 1] + 0.5 * (h - 1.0)
 
 
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Regression targets from ex_rois to gt_rois (reference
+    nonlinear_transform): [..., 4], [..., 4] -> (dx, dy, dw, dh) [..., 4]."""
+    ex_w, ex_h = box_wh(ex_rois)
+    ex_cx, ex_cy = box_ctr(ex_rois)
+    gt_w, gt_h = box_wh(gt_rois)
+    gt_cx, gt_cy = box_ctr(gt_rois)
+    dx = (gt_cx - ex_cx) / (ex_w + 1e-14)
+    dy = (gt_cy - ex_cy) / (ex_h + 1e-14)
+    return torch.stack([dx, dy, torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)],
+                       dim=-1)
+
+
 def bbox_pred(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     """Decode deltas on top of boxes (reference nonlinear_pred).
     boxes: [..., N, 4]; deltas: [..., N, 4*K] -> [..., N, 4*K]."""

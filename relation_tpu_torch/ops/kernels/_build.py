@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("geom_bias", "nms_kernel", "stem", "nms_attention")
+SOURCES = ("geom_bias", "geom_bias_bwd", "nms_kernel", "stem", "nms_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -117,3 +117,13 @@ def check_inputs(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous input {tuple(t.shape)}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel with no backward refuses an input that asks for a gradient:
+    it never answers with a result cut off from the graph."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and an input requires a "
+            "gradient; call it under torch.no_grad() or on detached tensors")

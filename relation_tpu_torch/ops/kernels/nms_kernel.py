@@ -110,7 +110,8 @@ def nms_keep_sorted(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
     """Batched greedy-NMS keep mask. boxesT [C, 4, N] f32 sorted by
     descending score, N a multiple of ``block``; valid [C, N] f32.
     Returns keep [C, N] f32. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    take the plain version. The mask has no gradient: on the card an input
+    that requires one is refused."""
     global launches
     if boxesT.device.type != "cuda":
         return nms_keep_sorted_reference(boxesT, valid, thresh, block, max_keep)
@@ -121,6 +122,7 @@ def nms_keep_sorted(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
     if boxesT.dtype != torch.float32 or valid.dtype != torch.float32:
         raise TypeError("nms_keep_sorted: expects float32 boxes and valid")
     _build.check_inputs("nms_keep_sorted", boxesT, valid)
+    _build.refuse_grad("nms_keep_sorted", boxesT, valid)
     cap = N if max_keep is None else int(max_keep)
     keep = launch_sweep(valid, launch_mask(boxesT, thresh), block, cap)
     launches += 1

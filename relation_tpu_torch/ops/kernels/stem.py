@@ -51,15 +51,39 @@ def _launch(s2d, w4, scale, bias):
     return out
 
 
+class _Stem(torch.autograd.Function):
+    """forward = the kernel; backward = autograd of the plain version on the
+    saved inputs (the rule of relation_tpu/ops/pallas/stem.py:81-95)."""
+
+    @staticmethod
+    def forward(ctx, s2d, w4, scale, bias):
+        global launches
+        out = _launch(s2d.contiguous(), w4, scale.contiguous(),
+                      bias.contiguous())
+        launches += 1
+        ctx.save_for_backward(s2d, w4, scale, bias)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = stem_reference(*ins)
+            wanted = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, gout))
+        return tuple(next(grads) if n else None for n in need)
+
+
 def stem_conv1_bn_relu(s2d: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor) -> torch.Tensor:
     """relu(bn(conv1)) from the s2d planar image: s2d [B, 12, Ho, Wo] f32,
     w4 [192, 64] (models/backbone.py::conv1_w4), folded BN scale/bias [64]
-    -> [B, 64, Ho, Wo] bf16. CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
-    global launches
+    -> [B, 64, Ho, Wo] bf16. CUDA tensors launch the kernel, and a gradient
+    through it is autograd of the plain version; CPU tensors take the plain
+    version."""
     if s2d.device.type != "cuda":
         return stem_reference(s2d, w4, scale, bias)
-    out = _launch(s2d.contiguous(), w4, scale.contiguous(), bias.contiguous())
-    launches += 1
-    return out
+    return _Stem.apply(s2d, w4, scale, bias)

@@ -1,0 +1,79 @@
+"""Rehearse chip_smoke.py's end-to-end phases on the CPU, at the tiny size.
+
+    python3 -m relation_tpu_torch.tools.rehearse_smoke
+
+A CUDA kernel cannot run without a card, so this is no check of the kernels:
+it finds wrong paths, arguments, shapes and control flow in chip_smoke.py
+and in the glue around the kernels before a run on the card is spent on
+them. It stubs the few torch.cuda calls the script makes, puts the plain
+version behind every kernel launcher, routes the model's kernel calls
+through the same autograd.Functions and launch counters the card uses, and
+then calls ``run_flagship`` and ``run_training`` with ``tiny=True`` (tiny
+trunk, 64x128 image). It prints what the script prints; its times are CPU
+times and mean nothing.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+
+
+def install_stubs() -> None:
+    import relation_tpu_torch.models.backbone as bb
+    import relation_tpu_torch.models.relation as rel
+    import relation_tpu_torch.ops.nms as nms
+    from relation_tpu_torch.ops.kernels import (geom_bias, nms_attention,
+                                                nms_kernel, stem)
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+
+    # plain versions behind the launchers
+    geom_bias._launch = lambda p, k, b, s, raw=False: (
+        geom_bias.geom_acc_reference(p, k, b, s) if raw
+        else geom_bias.geom_bias_reference(p, k, b, s))
+
+    def launch_bwd(p, k, b, g, s, need_pos=True, want_acc=False):
+        d_pos, d_w, d_b = geom_bias.geom_bias_bwd_reference(p, k, b, g, s)
+        return (d_pos if need_pos else None, d_w, d_b)
+    geom_bias._launch_bwd = launch_bwd
+    nms_attention._launch = lambda pos, q, k, v, wg, bg, wl, active, s, name: (
+        nms_attention.nms_relation_attention_reference(pos, q, k, v, wg, bg,
+                                                       wl, active, s))
+    stem._launch = stem.stem_reference
+
+    # the model's calls, through the Functions and counters of the card path
+    def counted(mod, attr, fn):
+        def call(*a, **k):
+            setattr(mod, attr, getattr(mod, attr) + 1)
+            return fn(*a, **k)
+        return call
+    rel.fused_geometric_bias = lambda p, k, b, scale=100.0: (
+        geom_bias._GeomBias.apply(p, k, b, float(scale)))
+    rel.fused_nms_relation_attention = lambda *a, scale=100.0: (
+        nms_attention._FullAttention.apply(*a, float(scale)))
+    rel.fused_nms_relation_attention_skip = counted(
+        nms_attention, "launches",
+        nms_attention.nms_relation_attention_reference)
+    bb.stem_conv1_bn_relu = stem._Stem.apply
+    nms.nms_keep_sorted = counted(nms_kernel, "launches",
+                                  nms_kernel.nms_keep_sorted_reference)
+
+
+def main() -> None:
+    import chip_smoke
+    install_stubs()
+    cpu = torch.device("cpu")
+    chip_smoke.run_flagship(torch, cpu, tiny=True)
+    chip_smoke.run_training(torch, cpu, card="the CPU (rehearsal)", tiny=True)
+    print("rehearsal done: control flow only, no kernel ran")
+
+
+if __name__ == "__main__":
+    main()

@@ -170,12 +170,14 @@ def test_build_model_policy_and_refusals():
     from relation_tpu_torch.entry import flagship_cfg
     cfg = flagship_cfg()
     model = build_model(cfg, device="meta")
-    assert model.c4.Bottleneck_0.res2a_branch2a.weight.dtype == torch.bfloat16
+    # f32 master weights; the trunk computes in bf16 (a cast at the call)
+    assert model.c4.Bottleneck_0.res2a_branch2a.weight.dtype == torch.float32
+    assert model.c4.Bottleneck_0.res2a_branch2a.compute_dtype == torch.bfloat16
     assert model.fc_new_1.compute_dtype == torch.float32
     assert model.learn_nms_head.nms_logit.weight.dtype == torch.float32
     cfg.TPU.COMPUTE_DTYPE = "float32"
     assert build_model(cfg, device="meta").c4.Bottleneck_0 \
-        .res2a_branch2a.weight.dtype == torch.float32
+        .res2a_branch2a.compute_dtype == torch.float32
     for sym in ("resnet_v1_101_rcnn_dcn_attention_1024_pairwise_position_"
                 "multi_head_16_learn_nms",
                 "resnet_v1_101_rcnn_fpn_attention_1024_pairwise_position_"

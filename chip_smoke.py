@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py                  # every phase (the full check)
     python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain only
+    python3 chip_smoke.py --phase dcn      # build, kernel checks, DCN phases only
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
-2. Holds each of the six kernels against its plain PyTorch version on the
-   card, at the flagship shapes, on seeded random inputs, and times kernel, plain
-   version and (where one PyTorch call computes the same function) a
-   library yardstick with CUDA events.
+2. Holds each of the seven kernels against its plain PyTorch version on the
+   card, at the shapes the driven models give it (the NMS at the proposal
+   shape and at the classic tail's C=80, Np=512; the deformable col2im at
+   B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, with the
+   run-to-run difference its atomics leave), on seeded random inputs, and
+   times kernel, plain version and (where one PyTorch call computes the same
+   function) a library yardstick with CUDA events.
 3. Drives the flagship (ResNet-101 C4/C5, 81 classes, 6000 -> 300
    proposals, relation head, learned NMS with FIRST_N 100, 608x1024 s2d
    input, init_params weights) through the port's entry points: two seeded
@@ -29,7 +33,15 @@
    stem, the NMS and the geometric-bias forward must be above 0, and a
    first step's losses and update norm must agree with the same step run
    through the plain versions within 1e-3 relative.
-6. Prints one JSON line describing every kernel, then the device line.
+6. Serves the DCN family at full width (deformable res5, deformable PSROI
+   head; offset convs and offset FC seeded away from zero): two
+   dcn_learn_nms requests and one dcn_relation request through the classic
+   per-class NMS tail, kernel path against plain path in the same bands.
+7. Trains dcn_learn_nms at full width, B=2: three steps under the clip (the
+   col2im counter must show three launches a step), then one unclipped step
+   on the kernels against the plain versions within 1e-3 relative.
+8. Prints one JSON line describing every kernel (launches summed over the
+   driven paths), then the device line.
 
 Any failure exits non-zero without the last line. Needs no network; the
 kernels build into relation_tpu_torch/_build/.
@@ -407,6 +419,110 @@ def check_attention_full(torch, dev, rng):
                 bound_by=bby, library_ms=library_ms)
 
 
+def check_nms_classic(torch, dev, rng):
+    """nms_keep_sorted at the shape of the classic detection tail: 80
+    classes of 300 boxes padded to 512, each class stopping at 100 kept."""
+    from relation_tpu_torch.ops.kernels import nms_kernel as K
+    C, n, np_pad, block, max_keep, thresh = 80, 300, 512, 256, 100, 0.3
+    bT = np.zeros((C, 4, np_pad), np.float32)
+    valid = np.zeros((C, np_pad), np.float32)
+    for c in range(C):
+        # a few classes are crowded (12 clusters), most sparse, some short
+        bT[c, :, :n] = random_boxes(rng, n, clusters=12 if c % 8 == 0 else 150).T
+        valid[c, :n - (c % 5) * 40] = 1.0
+    bT_t, v_t = torch.tensor(bT, device=dev), torch.tensor(valid, device=dev)
+
+    def kernel():
+        return K.launch_sweep(v_t, K.launch_mask(bT_t, thresh), block, max_keep)
+    got = kernel()
+    want = K.nms_keep_sorted_reference(bT_t, v_t, thresh, block, max_keep)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    kept = want.sum(1).cpu().numpy()
+    ok = err == 0.0 and kept.max() >= max_keep and kept.min() < max_keep
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, lambda: K.nms_keep_sorted_reference(
+        bT_t, v_t, thresh, block, max_keep), inner=1, reps=7)
+    log(f"[kernel] nms_keep_sorted C={C} Np={np_pad} t={thresh} max_keep={max_keep} "
+        f"(classic tail): keep-mask mismatches {err:.0f} (tol 0) "
+        f"{'OK' if ok else 'FAIL'}; kept per class {int(kept.min())}..{int(kept.max())}; "
+        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a")
+    if not ok:
+        fail("nms_keep_sorted (classic tail shape) disagrees with its plain version")
+
+
+def col2im_inputs(torch, dev, rng, B, G=4, H=38, W=64, kk=9, cg=128):
+    """Sample coordinates of a 3x3, dilation-2 deformable conv over the res5
+    map with offsets of a few pixels (many samples leave the map), some set
+    exactly on an integer, on -1 and on H, and none within reach of the
+    top-left 3x3 pixels, in the [B, S, G] layout."""
+    Q = H * W
+    base_y = np.repeat(np.arange(H), W)[:, None, None] - 2.0
+    base_x = np.tile(np.arange(W), H)[:, None, None] - 2.0
+    tap = np.arange(3) * 2.0
+    yy = base_y + np.repeat(tap, 3)[None, :, None] + rng.randn(B, Q, kk, G) * 3.0
+    xx = base_x + np.tile(tap, 3)[None, :, None] + rng.randn(B, Q, kk, G) * 3.0
+    edge = rng.rand(B, Q, kk, G)
+    # nothing lands on the 3x3 pixels of the top-left corner: they must
+    # come back exactly zero
+    yy = np.where((yy > -1) & (yy < 3) & (xx > -1) & (xx < 3), -5.0, yy)
+    yy = np.where(edge < 0.02, np.round(yy), yy)
+    yy = np.where((edge >= 0.02) & (edge < 0.03), -1.0, yy)
+    yy = np.where((edge >= 0.03) & (edge < 0.04), float(H), yy)
+    xx = np.where(edge > 0.98, np.round(xx), xx)
+    yy, xx = (torch.tensor(a.reshape(B, Q * kk, G), dtype=torch.float32, device=dev)
+              for a in (yy, xx))
+    inside = (yy > -1.0) & (yy < H) & (xx > -1.0) & (xx < W)
+    zero = torch.zeros_like(yy)
+    d = torch.tensor(rng.randn(B, Q * kk, G, cg), dtype=torch.float32, device=dev)
+    return torch.where(inside, yy, zero), torch.where(inside, xx, zero), inside, d
+
+
+def check_col2im(torch, dev, rng):
+    from relation_tpu_torch.ops.kernels import dconv_col2im as K
+    H, W, G, cg = 38, 64, 4, 128
+    result = None
+    for B in (1, 2):
+        yz, xz, inside, d32 = col2im_inputs(torch, dev, rng, B)
+        n_in = int(inside.sum())
+        for d in (d32, d32.to(torch.bfloat16)):
+            name = "bf16" if d.dtype == torch.bfloat16 else "f32"
+            got = K._launch(yz, xz, inside, d, H, W)
+            again = K._launch(yz, xz, inside, d, H, W)
+            want = K.dconv_col2im_reference(yz, xz, inside, d, H, W)
+            torch.cuda.synchronize()
+            top = float(want.abs().max())
+            err = float((got - want).abs().max())
+            rerun = float((got - again).abs().max())
+            # both sum the same f32 products in another order: 1e-5 of the
+            # largest element (some 30 terms of size 1 a pixel)
+            tol = 1e-5 * top
+            untouched = bool((got[:, :3, :3] == 0).all()) and bool(
+                (got[:, 3:, 3:] != 0).any())
+            ok = (err <= tol and rerun <= tol and untouched
+                  and bool(torch.isfinite(got).all()))
+            ms = time_ms(torch, lambda: K._launch(yz, xz, inside, d, H, W))
+            plain_ms = time_ms(torch, lambda: K.dconv_col2im_reference(
+                yz, xz, inside, d, H, W), inner=2, reps=7)
+            # the rows of the samples inside, the coordinates and the mask,
+            # and dx zeroed once and written once; 2 flops a corner a channel
+            out_bytes = B * H * W * G * cg * 4
+            bms, bby = bound(n_in * cg * d.element_size() + yz.numel() * 9
+                             + 2 * out_bytes, 2 * 4 * n_in * cg, F32_PEAK)
+            log(f"[kernel] dconv_col2im B={B} BG={B * G} R={yz.shape[1]} {H}x{W} "
+                f"cg={cg} D {name}: max abs err {err:.3e} of max {top:.3e} (tol "
+                f"1e-5 of max), two launches differ by {rerun:.3e} (atomics), "
+                f"untouched pixels zero: {untouched}, {n_in} of {yz.numel()} "
+                f"samples inside, {'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} library_ms n/a bound_us "
+                f"{bms * 1e3:.2f} ({bby})")
+            if not ok:
+                fail(f"dconv_col2im B={B} {name} disagrees with its plain version")
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=bby, library_ms=None)
+    return result   # B=2 with bf16 rows, what the train step launches
+
+
 # --------------------------------------------------------------------------
 # phases 3-4: the flagship through the port's entry points
 # --------------------------------------------------------------------------
@@ -417,10 +533,10 @@ COUNTERS = {"geom_bias": ("geom_bias", "launches"),
             "stem_conv1_bn_relu": ("stem", "launches"),
             "fused_nms_relation_attention_skip": ("nms_attention", "launches"),
             "geom_bias_bwd": ("geom_bias", "bwd_launches"),
-            "fused_nms_relation_attention": ("nms_attention", "full_launches")}
+            "fused_nms_relation_attention": ("nms_attention", "full_launches"),
+            "dconv_col2im": ("dconv_col2im", "launches")}
 INFERENCE_KERNELS = ("geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu",
                      "fused_nms_relation_attention_skip")
-TRAINING_KERNELS = ("geom_bias_bwd", "fused_nms_relation_attention")
 
 
 def _counter(name):
@@ -447,10 +563,12 @@ def plain_kernels():
     dispatches by device)."""
     import relation_tpu_torch.models.backbone as bb
     import relation_tpu_torch.models.relation as rel
+    import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
-    from relation_tpu_torch.ops.kernels import (geom_bias, nms_attention,
-                                                nms_kernel, stem)
-    swaps = [(bb, "stem_conv1_bn_relu",
+    from relation_tpu_torch.ops.kernels import (dconv_col2im, geom_bias,
+                                                nms_attention, nms_kernel, stem)
+    swaps = [(deform, "dconv_col2im", dconv_col2im.dconv_col2im_reference),
+             (bb, "stem_conv1_bn_relu",
               lambda x, w4, s, b: stem.stem_reference(x, w4, s, b)),
              (rel, "fused_geometric_bias", geom_bias.geom_bias_reference),
              (rel, "fused_nms_relation_attention_skip",
@@ -597,8 +715,121 @@ def run_flagship(torch, dev, n_images: int = 2, n_active: int = 16,
     return launches, statistics.median(times)
 
 
+def seed_offsets(torch, model, cfg, image, im_info, seed: int = 5) -> None:
+    """Give a DCN model's offset branches small non-zero values. The JAX
+    package and init_params start them at zero, which samples on the integer
+    grid only and leaves the offset gradient trivial inputs. Every offset
+    conv and the ``offset`` FC gets seeded random weights (the biases stay
+    at zero: at x0.01 learning rate a bias of visible size would not move
+    by one f32 step in a few updates), and one request
+    scales each, in the order the model runs them, so that its output has
+    standard deviation 1: about a pixel of offset in res5, and a bin shift of
+    a tenth of the ROI's size (trans_std 0.1) in the head."""
+    from relation_tpu_torch.core.predictor import make_predict_fn
+    mods = [m for name, m in model.named_modules()
+            if name.endswith("_branch2b_offset") or name == "offset"]
+    rng = np.random.RandomState(seed)
+    hooks = []
+
+    def calibrate(m, _inp, out):
+        bias = m.bias.view((1, -1) + (1,) * (out.dim() - 2)).to(out.dtype)
+        scale = 1.0 / max(float((out - bias).std()), 1e-12)
+        m.weight.data.mul_(scale)
+        return (out - bias) * scale + bias
+    with torch.no_grad():
+        for m in mods:
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.tensor(rng.randn(*m.weight.shape) / fan_in ** 0.5,
+                                        dtype=torch.float32))
+            hooks.append(m.register_forward_hook(calibrate))
+    try:
+        make_predict_fn(model, cfg)(image, im_info)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def run_dcn_inference(torch, dev, card: str = "", tiny: bool = False):
+    """The DCN family at inference: two dcn_learn_nms requests and one
+    dcn_relation request (classic per-class NMS tail), kernel path then
+    plain path, offsets seeded away from zero. Returns (launch counts summed
+    over the two models, median ms/image of the dcn_learn_nms requests)."""
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import make_predict_fn
+    from relation_tpu_torch.core.trainer import build_model
+    from relation_tpu_torch.entry import BUCKET, family_cfg
+    H, W = (64, 128) if tiny else BUCKET
+    images = [torch.tensor(np.random.RandomState(7 + i).randn(12, H // 2, W // 2)
+                           * 40.0, dtype=torch.float32, device=dev)
+              for i in range(2)]
+    im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
+    total = {k: 0 for k in COUNTERS}
+    ms_image = None
+    for family, imgs in (("dcn_learn_nms", images), ("dcn_relation", images[:1])):
+        cfg = family_cfg(family, tiny_shapes=tiny)
+        if tiny:
+            cfg.TEST.SCORE_THRESH = 0.0
+        model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+        seed_offsets(torch, model, cfg, imgs[0], im_info)
+        predict = make_predict_fn(model, cfg)
+        predict(imgs[0], im_info)                       # warm-up
+        torch.cuda.synchronize()
+
+        def run():
+            outs, times = [], []
+            for img in imgs:
+                t1 = time.perf_counter()
+                o = predict(img, im_info)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                outs.append(o["dets"].cpu().numpy())
+            return outs, times
+        zero_counters()
+        outs, times = run()
+        launches = {k: read_counter(k) for k in COUNTERS}
+        n_dets = [int((d[:, 0] >= 0).sum()) for d in outs]
+        log(f"[e2e {family}] kernel path: ms/image "
+            f"{', '.join(f'{x:.3f}' for x in times)}; detections {n_dets}; "
+            f"launches {launches}; on {card}")
+        for d in outs:
+            if not np.isfinite(d).all() or d.shape != (int(cfg.TEST.max_per_image), 6):
+                fail(f"{family}: bad detections: shape {d.shape}")
+        if min(n_dets) == 0:
+            fail(f"{family}: a request returned no detections")
+        must = ["geom_bias", "nms_keep_sorted"] + ([] if tiny else ["stem_conv1_bn_relu"])
+        # the classic tail is one more NMS launch a request, over 80 classes
+        if family == "dcn_relation" and launches["nms_keep_sorted"] < 2 * len(imgs):
+            fail("the classic tail did not launch nms_keep_sorted")
+        zero = [k for k in must if launches[k] <= 0]
+        if zero:
+            fail(f"{family}: kernels never launched: {zero}")
+        with plain_kernels():
+            zero_counters()
+            plain_outs, plain_times = run()
+            stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
+        if stray:
+            fail(f"{family}: plain run launched kernels: {stray}")
+        errs = []
+        for i, (ref, new) in enumerate(zip(plain_outs, outs)):
+            errs += [f"image {i}: {e}" for e in match_dets(ref, new)]
+        log(f"[e2e {family}] plain path: ms/image "
+            f"{', '.join(f'{x:.3f}' for x in plain_times)}; kernel vs plain "
+            f"top-{TOP_K} (IoU>={IOU_MIN}, |ds|<={SCORE_ATOL}): "
+            f"{'OK' if not errs else f'{len(errs)} mismatches'}")
+        if errs:
+            for e in errs[:20]:
+                log(f"  {e}")
+            fail(f"{family}: kernel path outside the bands of the plain path")
+        for k, v in launches.items():
+            total[k] += v
+        if family == "dcn_learn_nms":
+            ms_image = statistics.median(times)
+        del model, predict
+    return total, ms_image
+
+
 # --------------------------------------------------------------------------
-# phase 5: the flagship train step
+# phases 5 and 7: the train step
 # --------------------------------------------------------------------------
 
 def training_batch(H, W, B=2, n_gt=3, max_gt=16):
@@ -620,22 +851,37 @@ def training_batch(H, W, B=2, n_gt=3, max_gt=16):
             "gt_boxes": gt, "gt_valid": gv}
 
 
-def run_training(torch, dev, card: str = "", tiny: bool = False):
-    """Five train steps of the flagship on the kernels, then one unclipped
-    step from the same start on the kernels and on the plain versions. ``tiny`` (a rehearsal on the CPU) takes the
-    tiny trunk and a 64x128 image. Returns the launch counts."""
+def run_training(torch, dev, card: str = "", tiny: bool = False,
+                 family: str = "flagship", dense_steps: int = 3,
+                 fused_steps: int = 2):
+    """Train steps of one family on the kernels (``dense_steps`` with the
+    dense learned-NMS attention, then ``fused_steps`` with the fully fused
+    one), then one unclipped step from the same start on the kernels and on
+    the plain versions. A DCN family gets its offset branches seeded away
+    from zero. ``tiny`` (a rehearsal on the CPU) takes the tiny trunk and a
+    64x128 image. Returns the launch counts of the clipped steps."""
     from relation_tpu_torch.convert import init_params
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  make_train_step, trainable_mask)
-    from relation_tpu_torch.entry import BUCKET, flagship_cfg
+    from relation_tpu_torch.entry import BUCKET, family_cfg
     H, W = (64, 128) if tiny else BUCKET
     batch = training_batch(H, W)
     B = batch["image"].shape[0]
+    dcn = family.startswith("dcn")
+    tag = f"[train {family}]"
+    steps = dense_steps + fused_steps
 
-    def fresh(clip):
-        cfg = flagship_cfg(tiny_shapes=tiny)
+    def fresh(clip, weights=None):
+        cfg = family_cfg(family, tiny_shapes=tiny)
         cfg.TPU.GRAD_CLIP = clip
-        model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+        model = build_model(cfg, tiny=tiny, device=dev)
+        if weights is not None:
+            model.load_state_dict(weights)
+        else:
+            init_params(model, seed=0)
+            if dcn:
+                seed_offsets(torch, model, cfg, batch["image"][0],
+                             batch["im_info"][0])
         return (model, create_train_state(model, cfg, seed=0),
                 make_train_step(model, cfg, device=dev))
 
@@ -660,14 +906,16 @@ def run_training(torch, dev, card: str = "", tiny: bool = False):
     # (TPU.GRAD_CLIP) at 10; the one-step comparison below runs without it
     model, state, step = fresh(10.0)
     start = snapshot(model)
-    mask = trainable_mask(model, tuple(flagship_cfg().network.FIXED_PARAMS))
+    mask = trainable_mask(model, tuple(family_cfg(family).network.FIXED_PARAMS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
     history, times = [], []
-    for i in range(5):
-        # steps 0-2 on the dense learned-NMS attention, 3-4 on the fused one
-        model.learn_nms_head.NMSRelationModule_0.fully_fused = i >= 3
+    for i in range(steps):
+        # the first steps on the dense learned-NMS attention, the rest on
+        # the fused one
+        if fused_steps:
+            model.learn_nms_head.NMSRelationModule_0.fully_fused = i >= dense_steps
         m, ms = one_step(step, state)
         history.append(m)
         times.append(ms)
@@ -687,30 +935,37 @@ def run_training(torch, dev, card: str = "", tiny: bool = False):
     if still or strayed:
         fail(f"trainable leaves that did not move: {still[:5]} ({len(still)}); "
              f"frozen leaves that moved: {strayed[:5]} ({len(strayed)})")
-    want = {"geom_bias_bwd": 3 * B * 3 + 2 * B * 2,
-            "fused_nms_relation_attention": 2 * B,
-            "stem_conv1_bn_relu": 0 if tiny else 5, "nms_keep_sorted": 5 * B,
-            "geom_bias": 3 * B * 3 + 2 * B * 2}
-    short = {k: (launches[k], n) for k, n in want.items() if launches[k] < max(n, 1)
-             and not (tiny and k == "stem_conv1_bn_relu")}
+    # two relation modules and the learned-NMS bias a dense step, the two
+    # relation modules a fused one; the tiny trunk has neither the conv1
+    # stem nor a deformable res5 (three deformable convs a step)
+    want = {"geom_bias_bwd": dense_steps * B * 3 + fused_steps * B * 2,
+            "fused_nms_relation_attention": fused_steps * B,
+            "stem_conv1_bn_relu": 0 if tiny else steps,
+            "nms_keep_sorted": steps * B,
+            "geom_bias": dense_steps * B * 3 + fused_steps * B * 2,
+            "dconv_col2im": 3 * steps if dcn and not tiny else 0}
+    short = {k: (launches[k], n) for k, n in want.items() if launches[k] < n}
+    if launches["dconv_col2im"] != want["dconv_col2im"]:
+        short["dconv_col2im"] = (launches["dconv_col2im"], want["dconv_col2im"])
     if short:
         fail(f"kernels launched too rarely in training (got, expected): {short}")
-    log(f"[train] kernel path, B={B}: total_loss per step "
+    fused_ms = f"{times[-1]:.3f}" if fused_steps else "n/a"
+    log(f"{tag} kernel path, B={B}: total_loss per step "
         f"{', '.join(f'{x:.6f}' for x in losses)}; ms/step "
         f"{', '.join(f'{x:.3f}' for x in times)}; median after one warm-up: dense "
-        f"{statistics.median(times[1:3]):.3f} ms/step, fully fused "
-        f"{times[4]:.3f} ms/step; peak memory {peak_gb:.3f} GiB; "
+        f"{statistics.median(times[1:dense_steps]):.3f} ms/step, fully fused "
+        f"{fused_ms} ms/step; peak memory {peak_gb:.3f} GiB; "
         f"{sum(mask.values())} trainable leaves moved, "
         f"{len(mask) - sum(mask.values())} frozen leaves still; launches "
         f"{launches}; on {card}")
 
     del model, state, step, end
-    model, state, step = fresh(0.0)
+    model, state, step = fresh(0.0, start)
     first_m, _ = one_step(step, state)
     first_norm = update_norm(model, start)
     del model, state, step
     with plain_kernels():
-        model, state, step = fresh(0.0)
+        model, state, step = fresh(0.0, start)
         zero_counters()
         plain_m, plain_ms = one_step(step, state)
         stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
@@ -721,7 +976,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False):
                 for k, v in plain_m.items() if k.endswith("loss"))
     norm_err = abs(first_norm - plain_norm) / plain_norm
     ok = worst[0] <= 1e-3 and norm_err <= 1e-3
-    log(f"[train] one unclipped step, plain path: total_loss "
+    log(f"{tag} one unclipped step, plain path: total_loss "
         f"{plain_m['total_loss']:.6f} ({plain_ms:.3f} ms, first call); kernel "
         f"path: total_loss {first_m['total_loss']:.6f}; kernel vs plain: worst loss "
         f"{worst[1]} rel {worst[0]:.2e}, update norm {first_norm:.6e} vs "
@@ -733,7 +988,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels"], default="all")
+    ap.add_argument("--phase", choices=["all", "kernels", "dcn"], default="all")
     args = ap.parse_args()
     try:
         import torch
@@ -788,16 +1043,42 @@ def main() -> None:
         "fused_nms_relation_attention": (
             csrc + "nms_attention.cu", pallas + "nms_attention.py:136",
             check_attention_full, np.random.RandomState(2)),
+        "dconv_col2im": (csrc + "dconv_col2im.cu", pallas + "dconv_col2im.py:71",
+                         check_col2im, np.random.RandomState(3)),
     }
+    if args.phase == "dcn":
+        checks = {"dconv_col2im": checks["dconv_col2im"]}
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
+    check_nms_classic(torch, dev, np.random.RandomState(4))
     if args.phase == "kernels":
         log("[done] kernel phase only: no device line")
         return
 
-    launches, ms_image = run_flagship(torch, dev)
-    log(f"[e2e] flagship median ms/image {ms_image:.3f} on {card}")
-    train_launches = run_training(torch, dev, card)
-    launches.update({k: train_launches[k] for k in TRAINING_KERNELS})
+    # every driven path zeroes the counters just before and reads them just
+    # after; the JSON line sums the paths
+    launches = {k: 0 for k in COUNTERS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+    if args.phase == "all":
+        flagship_launches, ms_image = run_flagship(torch, dev)
+        add(flagship_launches)
+        log(f"[e2e] flagship median ms/image {ms_image:.3f} on {card}")
+        add(run_training(torch, dev, card))
+        torch.cuda.empty_cache()
+    dcn_launches, dcn_ms = run_dcn_inference(torch, dev, card)
+    add(dcn_launches)
+    log(f"[e2e] dcn_learn_nms median ms/image {dcn_ms:.3f} on {card}")
+    torch.cuda.empty_cache()
+    add(run_training(torch, dev, card, family="dcn_learn_nms", dense_steps=3,
+                     fused_steps=0))
+    if args.phase == "dcn":
+        log(f"[done] DCN phases only: launches {launches}; no device line")
+        return
+    never = [k for k, v in launches.items() if v <= 0]
+    if never:
+        fail(f"kernels never launched on any driven path: {never}")
     kernels = []
     for name, (source, replaces, _, _) in checks.items():
         r = results[name]

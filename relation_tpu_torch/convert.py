@@ -4,9 +4,12 @@
 onto this package's ``state_dict``: the module trees mirror each other, so a
 flax path ``a/b/leaf`` becomes the torch key ``a.b.leaf`` with
 
-  - conv ``kernel`` HWIO -> ``weight`` OIHW,
+  - conv ``kernel`` HWIO -> ``weight`` OIHW, and the same for the bare
+    rank-4 ``*_weight`` of a deformable conv (``res5x_branch2b_weight``,
+    which keeps its name),
   - dense ``kernel`` [in, out] -> ``weight`` [out, in],
-  - ``bias``, the grouped ``*_weight`` [g, f, e] / ``*_bias`` and the four
+  - ``bias`` (the offset convs and the ``offset`` Dense of the DCN symbols
+    have one), the grouped ``*_weight`` [g, f, e] / ``*_bias`` and the four
     FrozenBatchNorm vectors kept as they are.
 
 ``to_jax_params`` is the inverse, from a state_dict (or any dict of the same
@@ -35,6 +38,8 @@ def _torch_key_and_value(path: str, value: np.ndarray):
         if value is None:
             raise ValueError(f"{path}: kernel of unexpected rank")
         leaf = "weight"
+    elif leaf.endswith("_weight") and value.ndim == 4:
+        value = value.transpose(3, 2, 0, 1)
     return ".".join(parts[:-1] + [leaf]), value
 
 
@@ -65,7 +70,9 @@ def to_jax_params(state_dict: dict) -> dict:
     """state_dict key -> tensor, to {flax '/'-joined path: float32 numpy
     array}: the inverse of ``from_jax_params``. A 4-D ``weight`` is a conv
     kernel (OIHW -> HWIO ``kernel``), a 2-D ``weight`` a dense kernel
-    ([out, in] -> [in, out]); every other leaf keeps its name and layout."""
+    ([out, in] -> [in, out]), a 4-D ``*_weight`` the bare deformable-conv
+    weight (OIHW -> HWIO, name kept); every other leaf keeps its name and
+    layout."""
     out = {}
     for key, value in state_dict.items():
         v = value.detach().to(torch.float32).cpu().numpy()
@@ -78,7 +85,10 @@ def to_jax_params(state_dict: dict) -> dict:
             else:
                 raise ValueError(f"{key}: weight of unexpected rank {v.ndim}")
             parts[-1] = "kernel"
-        out["/".join(parts)] = np.ascontiguousarray(v)
+        elif parts[-1].endswith("_weight") and v.ndim == 4:
+            v = v.transpose(2, 3, 1, 0)
+        # a copy: the result must not alias parameters that train in place
+        out["/".join(parts)] = np.array(v, order="C")
     return out
 
 
@@ -97,7 +107,10 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     numpy RandomState seeded by the seed and a CRC of its key), at the flax
     initialisers' scales: lecun-normal for the trunk and RPN convs,
     normal(0.01) for the head, zero biases, nms_logit bias -3.0
-    (relation_tpu/models/learn_nms.py:167-169), BatchNorm at identity.
+    (relation_tpu/models/learn_nms.py:167-169), BatchNorm at identity. Of
+    the DCN leaves, the offset convs and the ``offset`` FC start at zero as
+    in the JAX package (so a fresh model samples on the integer grid), and
+    the bare deformable weight takes variance_scaling(2.0, fan_out).
     Returns the model."""
     sd = {}
     for key, t in model.state_dict().items():
@@ -108,6 +121,12 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             v = np.ones(shape)
         elif leaf in ("beta", "moving_mean") or leaf.endswith("bias"):
             v = np.full(shape, -3.0 if key.endswith("nms_logit.bias") else 0.0)
+        elif key.endswith("_offset.weight") or key == "offset.weight":
+            v = np.zeros(shape)
+        elif len(shape) == 4 and leaf.endswith("_weight"):
+            fan_out = shape[0] * shape[2] * shape[3]
+            v = _truncated_normal(rng, shape) * (np.sqrt(2.0 / fan_out)
+                                                 / 0.87962566103423978)
         elif len(shape) == 4 and key.split(".")[0] in ("c4", "c5", "rpn"):
             fan_in = int(np.prod(shape[1:]))
             v = _truncated_normal(rng, shape) * (np.sqrt(1.0 / fan_in)

@@ -1,7 +1,8 @@
 """Model factory and the train step (port of relation_tpu/core/trainer.py).
 
-``build_model`` is the registry of the C4 symbols. ``create_train_state`` and
-``make_train_step`` mirror the JAX entry points: one step is backbone -> RPN
+``build_model`` is the registry of the C4 symbols, plain and DCN.
+``create_train_state`` and ``make_train_step`` mirror the JAX entry points:
+one step is backbone (+deformable res5) -> RPN
 -> anchor targets -> proposals -> ROI targets -> head (+relation) -> losses
 (+OHEM, +learned NMS) -> gradients -> SGD with momentum, on the card unless
 the caller asks for the CPU. Differences that PyTorch brings:
@@ -77,12 +78,10 @@ def build_model(cfg, tiny: bool = False, device="cuda") -> RelationRCNN:
     everything in f32 for tiny models.
 
     Ported so far: the C4 symbols (plain 2FC head or relation head, with or
-    without learned NMS). DCN and FPN symbols raise."""
+    without learned NMS) and their DCN siblings (deformable res5 and
+    deformable PSROI head, pooled in TPU.DCN_POOL_DTYPE). FPN symbols
+    raise."""
     sym = cfg.symbol
-    if "dcn" in sym:
-        raise NotImplementedError(
-            f"{sym}: DCN symbols come with the DCN slice of the port "
-            "(ROADMAP Queue 1, item 6)")
     if "fpn" in sym:
         raise NotImplementedError(
             f"{sym}: FPN symbols come with the FPN slice of the port "
@@ -113,7 +112,10 @@ def build_model(cfg, tiny: bool = False, device="cuda") -> RelationRCNN:
             head_dim=64 if tiny else 1024,
             rcnn_feat_stride=int(cfg.network.RCNN_FEAT_STRIDE),
             conv_dtype=conv_dtype, head_dtype=head_dtype,
-            freeze_through=_freeze_through(tuple(cfg.network.FIXED_PARAMS)))
+            freeze_through=_freeze_through(tuple(cfg.network.FIXED_PARAMS)),
+            dcn="dcn" in sym,
+            dcn_pool_dtype=torch.float32 if tiny else _dtype(
+                cfg.TPU.get("DCN_POOL_DTYPE", "bfloat16")))
     if str(cfg.TPU.get("ROI_METHOD", "align")) != "align":
         raise NotImplementedError("TPU.ROI_METHOD='pool' (exact ROIPooling) "
                                   "is not ported yet")
@@ -247,8 +249,9 @@ def refreeze_state(state: TrainState, cfg, fixed_prefixes,
 def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
                     fixed_prefixes=None, no_grad: bool = False,
                     device="cuda") -> Callable:
-    """Build the per-batch train step of a C4 symbol, on ``device`` (the
-    model must live there; asking for CUDA where there is none raises).
+    """Build the per-batch train step of a C4 symbol (plain or DCN), on
+    ``device`` (the model must live there; asking for CUDA where there is
+    none raises).
 
     Returns ``train_step(state, batch, priorities=None) -> (state, metrics)``.
     batch: dict(image [B, H, W, 3] or s2d [B, 12, H/2, W/2] (f32, or uint8
@@ -271,9 +274,12 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
         raise NotImplementedError(
             f"stop_after={stop_after!r}: the benchmarking cuts of the JAX "
             "train step are not ported")
-    if "dcn" in cfg.symbol or "fpn" in cfg.symbol:
+    if "fpn" in cfg.symbol:
         raise NotImplementedError(f"{cfg.symbol}: only the C4 symbols are "
-                                  "ported (ROADMAP Queue 1, items 6-7)")
+                                  "ported (ROADMAP Queue 1, item 7)")
+    if ("dcn" in cfg.symbol) != bool(getattr(model, "dcn", False)):
+        raise ValueError(f"{cfg.symbol}: the model was built "
+                         f"{'with' if model.dcn else 'without'} the DCN parts")
     device = resolve_device(device)
     model_dev = next(model.parameters()).device
     if model_dev.type != device.type:

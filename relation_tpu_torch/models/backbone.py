@@ -1,5 +1,6 @@
-"""ResNet-101 C4 trunk and dilated C5 with frozen BatchNorm (port of
-relation_tpu/models/backbone.py; reference rcnn_base.py:29-683).
+"""ResNet-101 C4 trunk and dilated C5, plain or deformable, with frozen
+BatchNorm (port of relation_tpu/models/backbone.py; reference
+rcnn_base.py:29-683, resnet_v1_101_rcnn_dcn.py:688-755).
 
 NCHW inside. Module names mirror the flax tree of the JAX package
 (``Bottleneck_<i>`` auto-scopes, Caffe-style conv/bn names), so the flax
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from relation_tpu_torch.ops.deform import deformable_conv_batched
 from relation_tpu_torch.ops.kernels.stem import stem_conv1_bn_relu
 
 
@@ -241,4 +243,72 @@ class ResNet101C5(nn.Module):
     def forward(self, x):
         for i in range(3):
             x = getattr(self, f"Bottleneck_{i}")(x)
+        return x
+
+
+class DCNBottleneck(nn.Module):
+    """Bottleneck whose 3x3 is a deformable convolution steered by a learned
+    offset field (port of relation_tpu/models/backbone.py::DCNBottleneck).
+
+    ``res<p>_branch2b_offset`` is an f32 3x3 conv (dilated, with bias, 2 * 9
+    channels per deformable group, zero at initialisation) and
+    ``res<p>_branch2b_weight`` the deformable conv's bare weight, stored
+    OIHW like every conv weight here (the flax leaf is HWIO). Input and
+    output are NCHW; the deformable op itself runs NHWC."""
+
+    def __init__(self, prefix: str, cin: int, mid: int, out: int,
+                 dilation: int = 2, deform_groups: int = 4,
+                 has_proj: bool = False):
+        super().__init__()
+        p = prefix
+        self.prefix, self.has_proj = p, has_proj
+        self.dilation, self.deform_groups = dilation, deform_groups
+        if has_proj:
+            setattr(self, f"res{p}_branch1", _conv(cin, out, 1))
+            setattr(self, f"bn{p}_branch1", FrozenBatchNorm(out))
+        setattr(self, f"res{p}_branch2a", _conv(cin, mid, 1))
+        setattr(self, f"bn{p}_branch2a", FrozenBatchNorm(mid))
+        # always f32 (compute_dtype stays None): build_model sets the trunk's
+        # dtype on Conv2d instances only
+        setattr(self, f"res{p}_branch2b_offset", nn.Conv2d(
+            mid, deform_groups * 2 * 9, 3, padding=2, dilation=dilation))
+        setattr(self, f"res{p}_branch2b_weight",
+                nn.Parameter(torch.empty(mid, mid, 3, 3)))
+        setattr(self, f"bn{p}_branch2b", FrozenBatchNorm(mid))
+        setattr(self, f"res{p}_branch2c", _conv(mid, out, 1))
+        setattr(self, f"bn{p}_branch2c", FrozenBatchNorm(out))
+
+    def forward(self, x):
+        p = self.prefix
+        g = lambda name: getattr(self, name)                       # noqa: E731
+        sc = g(f"bn{p}_branch1")(g(f"res{p}_branch1")(x)) if self.has_proj else x
+        conv_a = g(f"res{p}_branch2a")
+        y = F.relu(g(f"bn{p}_branch2a")(conv_a(x)))
+        dt = conv_a.compute_dtype or y.dtype
+        offset = g(f"res{p}_branch2b_offset")(y.float())           # NCHW f32
+        w = g(f"res{p}_branch2b_weight")
+        d = deformable_conv_batched(
+            y.to(dt).permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
+            w.to(dt).permute(2, 3, 1, 0), kernel=3, dilation=self.dilation,
+            num_groups=self.deform_groups)
+        y = F.relu(g(f"bn{p}_branch2b")(d.to(dt).permute(0, 3, 1, 2)))
+        y = g(f"bn{p}_branch2c")(g(f"res{p}_branch2c")(y))
+        return F.relu(sc + y)
+
+
+class ResNet101C5DCN(nn.Module):
+    """Deformable res5: three DCNBottlenecks, stride 1, dilation 2, four
+    deformable groups (reference resnet_v1_101_rcnn_dcn.py:688-755).
+    ``cin``/``mid``/``out`` narrow it for the tests."""
+
+    def __init__(self, cin: int = 1024, mid: int = 512, out: int = 2048):
+        super().__init__()
+        for i, name in enumerate(_unit_names(5, 3)):
+            setattr(self, f"DCNBottleneck_{i}", DCNBottleneck(
+                name, cin, mid, out, dilation=2, has_proj=(i == 0)))
+            cin = out
+
+    def forward(self, x):
+        for i in range(3):
+            x = getattr(self, f"DCNBottleneck_{i}")(x)
         return x

@@ -1,5 +1,6 @@
 """Faster R-CNN (ResNet-101 C4 + dilated C5) with relation modules and the
-learned-NMS head (port of relation_tpu/models/detector.py, non-DCN).
+learned-NMS head, plain or DCN (deformable res5 + deformable PSROI head);
+port of relation_tpu/models/detector.py.
 
 Public methods keep the JAX package's layouts so the tests compare like
 with like: ``features_and_rpn`` returns [h, w, 256] features and
@@ -12,10 +13,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from relation_tpu_torch.models.backbone import Conv2d, ResNet101C4, ResNet101C5
+from relation_tpu_torch.models.backbone import (Conv2d, ResNet101C4,
+                                                ResNet101C5, ResNet101C5DCN)
 from relation_tpu_torch.models.learn_nms import LearnNMSHead
 from relation_tpu_torch.models.relation import Dense, RelationModule
 from relation_tpu_torch.models.rpn import RPNHead
+from relation_tpu_torch.ops.deform import deformable_psroi_pool
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
 from relation_tpu_torch.ops.roi_pool import roi_align_mxu
 
@@ -31,22 +34,30 @@ class RelationRCNN(nn.Module):
                  rcnn_feat_stride: int = 16,
                  conv_dtype: torch.dtype = torch.bfloat16,
                  head_dtype: torch.dtype = torch.float32,
-                 freeze_through: int = 0):
+                 freeze_through: int = 0, dcn: bool = False,
+                 dcn_pool_dtype: torch.dtype = torch.float32):
+        """``dcn``: deformable res5 and the deformable PSROI head (a no-trans
+        pool feeds the zero-initialised ``offset`` FC, whose output steers a
+        second pool); ``dcn_pool_dtype`` is the dtype both pools run in."""
         super().__init__()
         self.backbone = backbone
+        self.dcn, self.dcn_pool_dtype = dcn, dcn_pool_dtype
         self.conv_dtype = conv_dtype
         self.use_relation, self.use_learn_nms = use_relation, use_learn_nms
         self.rcnn_feat_stride = rcnn_feat_stride
         if backbone == "resnet101":
             self.c4 = ResNet101C4(dtype=conv_dtype,
                                   freeze_through=freeze_through)
-            self.c5 = ResNet101C5()
+            self.c5 = ResNet101C5DCN() if dcn else ResNet101C5()
             c4_ch, c5_ch = 1024, 2048
         else:
             self.c4 = _TinyTrunk()
+            self.c5 = None                   # the tiny trunk has no res5
             c4_ch = c5_ch = 32
         self.rpn = RPNHead(c4_ch, num_anchors)
         self.conv_new_1 = Conv2d(c5_ch, 256, 1)
+        if dcn:
+            self.offset = Dense(7 * 7 * 256, 7 * 7 * 2)
         self.fc_new_1 = Dense(7 * 7 * 256, head_dim, head_dtype)
         self.fc_new_2 = Dense(head_dim, head_dim, head_dtype)
         if use_relation:
@@ -71,7 +82,7 @@ class RelationRCNN(nn.Module):
         x = image if batched else image[None]
         c4 = self.c4(x)                                        # NCHW
         rpn_cls, rpn_bbox = self.rpn(c4)
-        c5 = self.c5(c4) if self.backbone == "resnet101" else c4
+        c5 = c4 if self.c5 is None else self.c5(c4)
         reduced = F.relu(self.conv_new_1(c5)).permute(0, 2, 3, 1)
         if batched:
             return reduced, rpn_cls, rpn_bbox
@@ -80,7 +91,17 @@ class RelationRCNN(nn.Module):
     def head(self, reduced_feat, rois, nongt_dim: int):
         """ROI head: feat [h, w, 256], rois [N, 4] -> (cls_score [N, K],
         bbox_pred [N, 4*num_reg], fc_all_2_relu [N, D])."""
-        pooled = roi_align_mxu(reduced_feat, rois, 1.0 / self.rcnn_feat_stride, 7)
+        scale = 1.0 / self.rcnn_feat_stride
+        if self.dcn:
+            pf = reduced_feat.to(self.dcn_pool_dtype)
+            offset_t = deformable_psroi_pool(pf, rois, None, scale,
+                                             pooled_size=7, sample_per_part=4)
+            off = self.offset(offset_t.reshape(rois.shape[0], -1).float())
+            pooled = deformable_psroi_pool(pf, rois, off.reshape(-1, 2, 7, 7),
+                                           scale, pooled_size=7,
+                                           sample_per_part=4, trans_std=0.1)
+        else:
+            pooled = roi_align_mxu(reduced_feat, rois, scale, 7)
         flat = pooled.reshape(pooled.shape[0], -1).float()
         if self.use_relation:
             pos_t = extract_position_matrix_t(rois, nongt_dim)

@@ -8,9 +8,11 @@ and in the glue around the kernels before a run on the card is spent on
 them. It stubs the few torch.cuda calls the script makes, puts the plain
 version behind every kernel launcher, routes the model's kernel calls
 through the same autograd.Functions and launch counters the card uses, and
-then calls ``run_flagship`` and ``run_training`` with ``tiny=True`` (tiny
-trunk, 64x128 image). It prints what the script prints; its times are CPU
-times and mean nothing.
+then calls ``run_flagship``, ``run_training``, ``run_dcn_inference`` and the
+DCN ``run_training`` with ``tiny=True`` (tiny trunk, 64x128 image; the tiny
+trunk has no res5, so the DCN rehearsal covers the deformable PSROI head, the
+classic NMS tail and the offset seeding, not the deformable conv). It prints
+what the script prints; its times are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
 def install_stubs() -> None:
     import relation_tpu_torch.models.backbone as bb
     import relation_tpu_torch.models.relation as rel
+    import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
-    from relation_tpu_torch.ops.kernels import (geom_bias, nms_attention,
-                                                nms_kernel, stem)
+    from relation_tpu_torch.ops.kernels import (dconv_col2im, geom_bias,
+                                                nms_attention, nms_kernel, stem)
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.empty_cache = lambda *a, **k: None
 
     # plain versions behind the launchers
     geom_bias._launch = lambda p, k, b, s, raw=False: (
@@ -64,6 +68,8 @@ def install_stubs() -> None:
     bb.stem_conv1_bn_relu = stem._Stem.apply
     nms.nms_keep_sorted = counted(nms_kernel, "launches",
                                   nms_kernel.nms_keep_sorted_reference)
+    deform.dconv_col2im = counted(dconv_col2im, "launches",
+                                  dconv_col2im.dconv_col2im_reference)
 
 
 def main() -> None:
@@ -71,7 +77,11 @@ def main() -> None:
     install_stubs()
     cpu = torch.device("cpu")
     chip_smoke.run_flagship(torch, cpu, tiny=True)
-    chip_smoke.run_training(torch, cpu, card="the CPU (rehearsal)", tiny=True)
+    card = "the CPU (rehearsal)"
+    chip_smoke.run_training(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_dcn_inference(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_training(torch, cpu, card=card, tiny=True,
+                            family="dcn_learn_nms", dense_steps=3, fused_steps=0)
     print("rehearsal done: control flow only, no kernel ran")
 
 

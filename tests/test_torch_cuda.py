@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at small
 and ragged shapes and with the options the flagship does not use
-(chip_smoke.py holds them at the flagship's shapes), gradients included. Marked ``cuda`` and
-skipped where there is no card: a CUDA kernel has no CPU mode. The card's
-machine has no JAX, so run this file without the suite's conftest:
+(chip_smoke.py holds them at the shapes of the driven models), gradients
+included. Marked ``cuda`` and skipped where there is no card: a CUDA kernel
+has no CPU mode. The card's machine has no JAX, so run this file without the
+suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -13,7 +14,8 @@ import torch
 
 from relation_tpu_torch.models.backbone import conv1_w4
 from relation_tpu_torch.ops.embeddings import extract_multi_position_matrix_t
-from relation_tpu_torch.ops.kernels import (geom_bias as GB, nms_attention as NA,
+from relation_tpu_torch.ops.kernels import (dconv_col2im as DC, geom_bias as GB,
+                                            nms_attention as NA,
                                             nms_kernel as NK, stem as ST)
 
 pytestmark = pytest.mark.cuda
@@ -295,3 +297,117 @@ def test_kernels_carry_a_gradient_or_refuse_one(dev):
     (want,) = torch.autograd.grad(ST.stem_reference(s2d, w4, scale, bias).float(),
                                   [w4], cot)
     assert float((g - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def _col2im_case(rng, dev, B, H, W, G, cg, S, dtype):
+    """Coordinates that leave the map on every side, with rows exactly on an
+    integer, on -1, on H, on the last pixel, and a band inside (-1, 0)."""
+    yy = rng.uniform(-2.5, H + 1.5, (B, S, G)).astype(np.float32)
+    xx = rng.uniform(-2.5, W + 1.5, (B, S, G)).astype(np.float32)
+    yy[:, 0::7] = np.round(yy[:, 0::7])
+    xx[:, 1::7] = np.round(xx[:, 1::7])
+    yy[:, 2::11], yy[:, 3::11] = -1.0, float(H)
+    xx[:, 4::11], xx[:, 5::11] = -1.0, float(W)
+    yy[:, 6::11], xx[:, 6::11] = H - 1.0, W - 1.0
+    yy[:, 7::11], xx[:, 7::11] = -0.5, W - 0.25
+    yy, xx = _tens(yy, dev), _tens(xx, dev)
+    inside = (yy > -1.0) & (yy < H) & (xx > -1.0) & (xx < W)
+    zero = torch.zeros_like(yy)
+    d = _tens(rng.randn(B, S, G, cg), dev).to(dtype)
+    return torch.where(inside, yy, zero), torch.where(inside, xx, zero), inside, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,G,cg,S", [
+    (2, 5, 7, 4, 128, 9 * 35),        # H*W = 35, R = 315: neither a multiple
+    (1, 6, 9, 2, 4, 301),             # cg 4: one 16-byte chunk a sample
+    (3, 4, 5, 1, 3, 77),              # cg 3: the scalar path
+    (1, 38, 64, 4, 128, 1000),        # the res5 map, few samples
+])
+def test_col2im_kernel_matches_plain(dev, dtype, B, H, W, G, cg, S):
+    """1e-5 of the largest element (f32 sums in another order, by atomics on
+    both sides); pixels out of every sample's reach exactly zero."""
+    rng = np.random.RandomState(H * W + cg)
+    yz, xz, inside, d = _col2im_case(rng, dev, B, H, W, G, cg, S, dtype)
+    before = DC.launches
+    got = DC.dconv_col2im(yz, xz, inside, d, H, W)
+    assert DC.launches == before + 1
+    want = DC.dconv_col2im_reference(yz, xz, inside, d, H, W)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, W, G * cg) and got.dtype == torch.float32
+    top = float(want.abs().max())
+    assert top > 0 and float((got - want).abs().max()) <= 1e-5 * top
+    again = DC.dconv_col2im(yz, xz, inside, d, H, W)
+    assert float((got - again).abs().max()) <= 1e-5 * top
+    cover = DC.dconv_col2im_reference(yz, xz, inside, torch.ones_like(d[..., :1]),
+                                      H, W)                      # [B, H, W, G]
+    assert bool((got.view(B, H, W, G, cg)[cover == 0] == 0).all())
+    none = DC.dconv_col2im(yz, xz, torch.zeros_like(inside), d, H, W)
+    assert not bool(none.any())
+
+
+def test_col2im_wrapper_refusals(dev):
+    rng = np.random.RandomState(0)
+    yz, xz, inside, d = _col2im_case(rng, dev, 1, 4, 4, 2, 4, 20, torch.float32)
+    with pytest.raises(TypeError):
+        DC.dconv_col2im(yz, xz, inside.float(), d, 4, 4)
+    with pytest.raises(TypeError):
+        DC.dconv_col2im(yz, xz, inside, d.half(), 4, 4)
+    with pytest.raises(ValueError):
+        DC.dconv_col2im(yz[:, :5], xz, inside, d, 4, 4)
+    with pytest.raises(ValueError):
+        DC.dconv_col2im(yz.transpose(1, 2).contiguous().transpose(1, 2), xz,
+                        inside, d, 4, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        DC.dconv_col2im(yz, xz, inside, d.clone().requires_grad_(True), 4, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deformable_conv_backward_on_the_card(dev, dtype, monkeypatch):
+    """The deformable conv's three gradients with dx from the kernel against
+    the same backward with dx from the plain version, B=2, G=4, offsets that
+    leave the map: dx within 1e-5 of its maximum in f32 (1e-2 in bf16: dx is
+    rounded to bf16 once on each side), doffset and dw bit-equal (they do not
+    run through the kernel); one launch a backward."""
+    import relation_tpu_torch.ops.deform as D
+    rng = np.random.RandomState(3)
+    B, H, W, C, Co, G = 2, 9, 11, 16, 8, 4
+    x = _tens(rng.randn(B, H, W, C), dev).to(dtype)
+    w = _tens(rng.randn(3, 3, C, Co) * 0.1, dev).to(dtype)
+    off = _tens(rng.randn(B, H, W, G * 18) * 2.5 + 0.3, dev)
+    g = _tens(rng.randn(B, H, W, Co), dev).to(dtype)
+
+    def grads():
+        ins = [a.clone().requires_grad_(True) for a in (x, off, w)]
+        out = D.deformable_conv_batched(*ins, kernel=3, dilation=2, num_groups=G)
+        return torch.autograd.grad(out, ins, g)
+    before = DC.launches
+    got = grads()
+    assert DC.launches == before + 1
+    monkeypatch.setattr(D, "dconv_col2im", DC.dconv_col2im_reference)
+    want = grads()
+    assert DC.launches == before + 1
+    top = float(want[0].float().abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert float((got[0].float() - want[0].float()).abs().max()) <= tol * top
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+
+
+@pytest.mark.parametrize("max_keep", [None, 100])
+def test_classwise_nms_on_the_card_equals_the_cpu(dev, max_keep):
+    """The classic tail's shape: 80 classes of 300 boxes (Np 512), one kernel
+    launch for all of them, keep masks equal to the CPU route bit for bit."""
+    from relation_tpu_torch.ops.nms import classwise_nms
+    rng = np.random.RandomState(5)
+    C, n = 80, 300
+    boxes = np.round(_boxes(rng, n, C)).transpose(1, 0, 2).astype(np.float32)
+    scores = np.round(rng.uniform(0, 1, (C, n)), 2).astype(np.float32)
+    valid = rng.uniform(0, 1, (C, n)) > 0.1
+    before = NK.launches
+    got = classwise_nms(_tens(boxes, dev), _tens(scores, dev), 0.3, 0.05,
+                        torch.tensor(valid, device=dev), max_keep)
+    assert NK.launches == before + 1
+    want = classwise_nms(torch.tensor(boxes), torch.tensor(scores), 0.3, 0.05,
+                         torch.tensor(valid), max_keep)
+    assert torch.equal(got.cpu(), want) and bool(want.any())

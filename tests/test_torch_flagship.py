@@ -178,8 +178,29 @@ def test_build_model_policy_and_refusals():
     cfg.TPU.COMPUTE_DTYPE = "float32"
     assert build_model(cfg, device="meta").c4.Bottleneck_0 \
         .res2a_branch2a.compute_dtype == torch.float32
-    for sym in ("resnet_v1_101_rcnn_dcn_attention_1024_pairwise_position_"
-                "multi_head_16_learn_nms",
+    # the DCN symbols build: deformable res5 (f32 offset convs, a bare f32
+    # deformable weight) and the offset FC, pooled in TPU.DCN_POOL_DTYPE
+    from relation_tpu_torch.models.backbone import ResNet101C5DCN
+    for sym in ("resnet_v1_101_dcn_rcnn",
+                "resnet_v1_101_rcnn_dcn_attention_1024_pairwise_position_"
+                "multi_head_16",
+                "resnet_v1_101_dcn_attention_1024_pairwise_position_"
+                "multi_head_16_learn_nms"):
+        cfg.symbol = sym
+        dcn = build_model(cfg, device="meta")
+        assert dcn.dcn and isinstance(dcn.c5, ResNet101C5DCN)
+        assert dcn.use_relation == ("attention" in sym)
+        unit = dcn.c5.DCNBottleneck_0
+        assert unit.res5a_branch2b_offset.weight.shape == (72, 512, 3, 3)
+        assert not hasattr(unit.res5a_branch2b_offset, "compute_dtype")
+        assert unit.res5a_branch2b_weight.dtype == torch.float32
+        assert unit.res5a_branch2a.compute_dtype == torch.float32
+        assert dcn.offset.weight.shape == (98, 7 * 7 * 256)
+        assert dcn.dcn_pool_dtype == torch.bfloat16
+    cfg.TPU.DCN_POOL_DTYPE = "float32"
+    assert build_model(cfg, device="meta").dcn_pool_dtype == torch.float32
+    assert build_model(cfg, tiny=True, device="meta").dcn_pool_dtype == torch.float32
+    for sym in ("resnet_v1_101_fpn_rcnn",
                 "resnet_v1_101_rcnn_fpn_attention_1024_pairwise_position_"
                 "multi_head_16_learn_nms"):
         cfg.symbol = sym

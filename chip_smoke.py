@@ -4,16 +4,21 @@
     python3 chip_smoke.py                  # every phase (the full check)
     python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain only
     python3 chip_smoke.py --phase dcn      # build, kernel checks, DCN phases only
+    python3 chip_smoke.py --phase trunk    # build, trunk kernel checks, phases 8-9
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
-2. Holds each of the seven kernels against its plain PyTorch version on the
+2. Holds each of the nine kernels against its plain PyTorch version on the
    card, at the shapes the driven models give it (the NMS at the proposal
    shape and at the classic tail's C=80, Np=512; the deformable col2im at
    B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, with the
-   run-to-run difference its atomics leave), on seeded random inputs, and
-   times kernel, plain version and (where one PyTorch call computes the same
-   function) a library yardstick with CUDA events.
+   run-to-run difference its atomics leave; the bottleneck stack at res4
+   (22 blocks), res3 and res2 and the projection bottleneck at res2a, res3a
+   and res4a of the 608x1024 trunk, on BN-folded weights of a seeded trunk),
+   on seeded random inputs, and times kernel, plain version and (where
+   PyTorch computes the same function) a library yardstick with CUDA
+   events: cuDNN convolutions, FrozenBatchNorm and ReLU through the port's
+   Bottleneck modules for the two trunk kernels.
 3. Drives the flagship (ResNet-101 C4/C5, 81 classes, 6000 -> 300
    proposals, relation head, learned NMS with FIRST_N 100, 608x1024 s2d
    input, init_params weights) through the port's entry points: two seeded
@@ -40,7 +45,14 @@
 7. Trains dcn_learn_nms at full width, B=2: three steps under the clip (the
    col2im counter must show three launches a step), then one unclipped step
    on the kernels against the plain versions within 1e-3 relative.
-8. Prints one JSON line describing every kernel (launches summed over the
+8. Serves the flagship with TPU.FUSE_RES4 through entry(), BN statistics
+   jittered from a seed: two requests with res4b1..b22 as the stack kernel,
+   held against the plain path in the bands of phase 4, the fused c4
+   feature against the conv trunk's at correlation >= 0.999.
+9. Runs ResNet101C4 on the 608x1024 image with trunk_folded (every res2..res4
+   block a kernel), held against the plain versions and the conv trunk,
+   and times the conv trunk, FUSE_RES4 and trunk_folded with CUDA events.
+10. Prints one JSON line describing every kernel (launches summed over the
    driven paths), then the device line.
 
 Any failure exits non-zero without the last line. Needs no network; the
@@ -523,6 +535,162 @@ def check_col2im(torch, dev, rng):
     return result   # B=2 with bf16 rows, what the train step launches
 
 
+def jitter_bn(torch, model, rng) -> None:
+    """Non-trivial frozen-BN statistics (init_params leaves BN at identity,
+    which would hide a fold that mixes up its scale and its shift)."""
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            leaf, shape = name.rsplit(".", 1)[-1], tuple(buf.shape)
+            if leaf == "moving_var":
+                r = rng.uniform(0.5, 2.0, shape)
+            elif leaf in ("moving_mean", "beta"):
+                r = rng.randn(*shape) * 0.1
+            elif leaf == "gamma":
+                r = rng.uniform(0.8, 1.2, shape)
+            else:
+                continue
+            r = torch.tensor(r, dtype=torch.float32, device=buf.device)
+            buf.add_(r) if leaf in ("moving_mean", "beta") else buf.mul_(r)
+
+
+def seeded_c4(torch, dev, seed: int = 21):
+    """A bf16 ResNet101C4 on the card with lecun-normal conv weights and
+    jittered BN, its convs computing in bf16 (build_model's policy)."""
+    from relation_tpu_torch.models.backbone import Conv2d, ResNet101C4
+    rng = np.random.RandomState(seed)
+    c4 = ResNet101C4(dtype=torch.bfloat16).to(dev).eval()
+    with torch.no_grad():
+        for p in c4.parameters():
+            p.copy_(torch.tensor(rng.randn(*p.shape) / np.sqrt(p[0].numel()),
+                                 dtype=torch.float32))
+    jitter_bn(torch, c4, rng)
+    for m in c4.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = torch.bfloat16
+    return c4
+
+
+# stage -> (identity blocks, [H, W] of its map, Cin of its first block, Cmid,
+# C, stride of its first block) at 608x1024
+TRUNK = {2: (2, (152, 256), 64, 64, 256, 1), 3: (3, (76, 128), 256, 128, 512, 2),
+         4: (22, (38, 64), 512, 256, 1024, 2)}
+
+
+def _band(torch, got, want):
+    """(max abs error, its share of max |want|, correlation)."""
+    got, want = got.float().flatten(), want.float().flatten()
+    err = float((got - want).abs().max())
+    corr = float(torch.corrcoef(torch.stack([got, want]))[0, 1])
+    return err, err / float(want.abs().max()), corr
+
+
+def check_stack(torch, dev, rng):
+    from relation_tpu_torch.models.backbone import fold_trunk_params
+    from relation_tpu_torch.ops.kernels import res4 as K
+    c4 = seeded_c4(torch, dev)
+    folds = fold_trunk_params(c4)
+    result = None
+    for stage in (4, 3, 2):
+        B, (H, W), _, Cmid, C, _ = TRUNK[stage]
+        stack = folds[stage]["stack"]
+        x = torch.tensor(np.maximum(rng.randn(H, W, C), 0) * 2.0,
+                         dtype=torch.bfloat16, device=dev)
+        x0 = x.clone()
+        got = K._launch(x, *stack)
+        want = K.bottleneck_stack_reference(x, *stack)
+        units = c4.units(stage)[1:]
+        xn = x.permute(2, 0, 1)[None].contiguous()
+
+        def library():
+            y = xn
+            for u in units:
+                y = u(y)
+            return y
+        with torch.inference_mode():
+            lib = library()[0].permute(1, 2, 0)
+        torch.cuda.synchronize()
+        err, rel, corr = _band(torch, got, want)
+        _, lib_rel, lib_corr = _band(torch, lib, want)
+        # both sum exact bf16 products in f32 in other orders and round y1,
+        # y2 and every block's output to bf16: an element one bf16 step
+        # apart travels through the later blocks
+        ok = (rel <= 2e-2 and corr > 0.9999 and torch.equal(x, x0)
+              and bool(torch.isfinite(got.float()).all()))
+        ms = time_ms(torch, lambda: K._launch(x, *stack), inner=5, reps=11)
+        plain_ms = time_ms(torch, lambda: K.bottleneck_stack_reference(x, *stack),
+                           inner=1, reps=5)
+        with torch.inference_mode():
+            library_ms = time_ms(torch, library, inner=2, reps=7)
+        R = H * W
+        wbytes = B * (2 * (2 * C * Cmid + 9 * Cmid * Cmid) + 4 * (2 * Cmid + C))
+        bms, bby = bound(2 * R * C * 2 + wbytes,
+                         2 * B * R * (2 * C * Cmid + 9 * Cmid * Cmid), BF16_PEAK)
+        log(f"[kernel] fused_bottleneck_stack res{stage} B={B} [{H},{W},{C}] "
+            f"Cmid={Cmid}: max abs err {err:.3e} = {rel:.2e} of max (tol 2e-2), "
+            f"corr {corr:.7f} (tol 0.9999), input unchanged: {torch.equal(x, x0)}, "
+            f"{'OK' if ok else 'FAIL'}; cuDNN chain vs plain {lib_rel:.2e} of max, "
+            f"corr {lib_corr:.7f}; kernel_ms {ms:.4f} ({3 * B} launches + 1 copy) "
+            f"plain_ms {plain_ms:.4f} library_ms(cuDNN chain) {library_ms:.4f} "
+            f"bound_us {bms * 1e3:.2f} ({bby})")
+        if not ok:
+            fail(f"fused_bottleneck_stack res{stage} disagrees with its plain version")
+        if stage == 4:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=bby, library_ms=library_ms)
+    del c4, folds
+    return result   # res4b1..b22, the stack that TPU.FUSE_RES4 runs
+
+
+def check_proj(torch, dev, rng):
+    from relation_tpu_torch.models.backbone import fold_trunk_params
+    from relation_tpu_torch.ops.kernels import bottleneck_proj as K
+    c4 = seeded_c4(torch, dev)
+    folds = fold_trunk_params(c4)
+    result = None
+    for stage in (4, 3, 2):
+        _, (H, W), Cin, Cmid, Cout, s = TRUNK[stage]
+        proj = folds[stage]["proj"]
+        x = torch.tensor(np.maximum(rng.randn(H * s, W * s, Cin), 0) * 2.0,
+                         dtype=torch.bfloat16, device=dev)
+        got = K._launch(x, *proj, s)
+        want = K.proj_bottleneck_reference(x, *proj, stride=s)
+        unit = c4.units(stage)[0]
+        xn = x.permute(2, 0, 1)[None].contiguous()
+        with torch.inference_mode():
+            lib = unit(xn)[0].permute(1, 2, 0)
+        torch.cuda.synchronize()
+        err, rel, corr = _band(torch, got, want)
+        _, lib_rel, lib_corr = _band(torch, lib, want)
+        ok = rel <= 2.0 ** -7 and corr > 0.9999 and bool(
+            torch.isfinite(got.float()).all())
+        ms = time_ms(torch, lambda: K._launch(x, *proj, s))
+        plain_ms = time_ms(torch, lambda: K.proj_bottleneck_reference(
+            x, *proj, stride=s), inner=2, reps=7)
+        with torch.inference_mode():
+            library_ms = time_ms(torch, lambda: unit(xn))
+        R = H * W
+        wbytes = 2 * (Cin * Cout + Cin * Cmid + 9 * Cmid * Cmid + Cmid * Cout) \
+            + 4 * (2 * Cout + 2 * Cmid)
+        # the rows the stride keeps are all the function reads of x
+        bms, bby = bound(R * Cin * 2 + R * Cout * 2 + wbytes,
+                         2 * R * (Cin * Cout + Cin * Cmid + 9 * Cmid * Cmid
+                                  + Cmid * Cout), BF16_PEAK)
+        log(f"[kernel] fused_proj_bottleneck res{stage}a [{H * s},{W * s},{Cin}] "
+            f"-> [{H},{W},{Cout}] s={s} Cmid={Cmid}: max abs err {err:.3e} = "
+            f"{rel:.2e} of max (tol 2^-7), corr {corr:.7f} (tol 0.9999) "
+            f"{'OK' if ok else 'FAIL'}; cuDNN block vs plain {lib_rel:.2e} of "
+            f"max, corr {lib_corr:.7f}; kernel_ms {ms:.4f} (3 launches) plain_ms "
+            f"{plain_ms:.4f} library_ms(cuDNN block) {library_ms:.4f} bound_us "
+            f"{bms * 1e3:.2f} ({bby})")
+        if not ok:
+            fail(f"fused_proj_bottleneck res{stage}a disagrees with its plain version")
+        if stage == 4:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=bby, library_ms=library_ms)
+    del c4, folds
+    return result   # res4a, the block before the stack
+
+
 # --------------------------------------------------------------------------
 # phases 3-4: the flagship through the port's entry points
 # --------------------------------------------------------------------------
@@ -534,7 +702,9 @@ COUNTERS = {"geom_bias": ("geom_bias", "launches"),
             "fused_nms_relation_attention_skip": ("nms_attention", "launches"),
             "geom_bias_bwd": ("geom_bias", "bwd_launches"),
             "fused_nms_relation_attention": ("nms_attention", "full_launches"),
-            "dconv_col2im": ("dconv_col2im", "launches")}
+            "dconv_col2im": ("dconv_col2im", "launches"),
+            "fused_bottleneck_stack": ("res4", "launches"),
+            "fused_proj_bottleneck": ("bottleneck_proj", "launches")}
 INFERENCE_KERNELS = ("geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu",
                      "fused_nms_relation_attention_skip")
 
@@ -565,9 +735,12 @@ def plain_kernels():
     import relation_tpu_torch.models.relation as rel
     import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
-    from relation_tpu_torch.ops.kernels import (dconv_col2im, geom_bias,
-                                                nms_attention, nms_kernel, stem)
+    from relation_tpu_torch.ops.kernels import (bottleneck_proj, dconv_col2im,
+                                                geom_bias, nms_attention,
+                                                nms_kernel, res4, stem)
     swaps = [(deform, "dconv_col2im", dconv_col2im.dconv_col2im_reference),
+             (bb, "fused_bottleneck_stack", res4.bottleneck_stack_reference),
+             (bb, "fused_proj_bottleneck", bottleneck_proj.proj_bottleneck_reference),
              (bb, "stem_conv1_bn_relu",
               lambda x, w4, s, b: stem.stem_reference(x, w4, s, b)),
              (rel, "fused_geometric_bias", geom_bias.geom_bias_reference),
@@ -829,6 +1002,199 @@ def run_dcn_inference(torch, dev, card: str = "", tiny: bool = False):
 
 
 # --------------------------------------------------------------------------
+# phases 8-9: the fused trunk
+# --------------------------------------------------------------------------
+
+def calibrate_heads(torch, model, predict, image, im_info) -> None:
+    """Scale the random weights of the four prediction layers so that, on
+    one request, their outputs have the spread of a trained detector: RPN
+    and class logits standard deviation 2, box deltas 0.2 (each layer in
+    the order the model runs it, the later ones seeing the calibrated
+    earlier ones). From init_params, with the trunk's activations at
+    several hundred, the RPN logits reach +-500 (tied foreground
+    probabilities of 1.0) and its box deltas 400 (every proposal clipped to
+    the whole image), so a band on the detections would compare
+    degenerate boxes."""
+    targets = {model.rpn.rpn_cls_score: 2.0, model.rpn.rpn_bbox_pred: 0.2,
+               model.cls_score: 2.0, model.bbox_pred: 0.2}
+    hooks = []
+
+    def calibrate(m, _inp, out):
+        bias = m.bias.view((1, -1) + (1,) * (out.dim() - 2)).to(out.dtype)
+        scale = targets[m] / max(float((out - bias).float().std()), 1e-12)
+        # detach() shares the version counter, so the bf16 copy that
+        # Conv2d keeps of its weight is made again
+        m.weight.detach().mul_(scale)
+        return (out - bias) * scale + bias
+    for m in targets:
+        hooks.append(m.register_forward_hook(calibrate))
+    try:
+        predict(image, im_info)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def run_fused_flagship(torch, dev, card: str = "", n_images: int = 2,
+                       tiny: bool = False):
+    """The flagship served through entry() with TPU.FUSE_RES4 and BN
+    statistics jittered from a seed: res4b1..b22 run as the stack kernel on
+    the folds kept with the model (prediction layers calibrated,
+    ``calibrate_heads``). The plain path computes its own c4 feature, held
+    to the kernel path's (max error 3e-2 of the largest element,
+    correlation 0.9999, the stack check's band), then continues from the
+    kernel path's c4 feature, and its detections are held to the kernel
+    path's in the bands of phase 4. From its own c4 feature the plain path's
+    detections are printed, not held: a random-weight detector's proposals,
+    per-class first-N cut and top-100 cut are discontinuous in the feature,
+    and bf16 trunks that are each right (the fused one, the conv one, the
+    plain versions) keep different boxes (PERF.md, section 6). The fused c4
+    feature is also held against the conv trunk's (correlation 0.999).
+    ``tiny`` (a rehearsal on the CPU) cuts the proposal counts and the image
+    to 64x128; the trunk stays full depth. Returns (launches, median
+    ms/image, the model)."""
+    from relation_tpu_torch.entry import BUCKET, entry, family_cfg
+    cfg = family_cfg("flagship", tiny_shapes=tiny)
+    cfg.TPU.FUSE_RES4 = True
+    if tiny:
+        cfg.TEST.SCORE_THRESH = 0.0
+    predict, _ = entry(device=dev, cfg=cfg)
+    model = predict.model
+    jitter_bn(torch, model, np.random.RandomState(5))
+    H, W = (64, 128) if tiny else BUCKET
+    images = [torch.tensor(np.random.RandomState(17 + i).randn(12, H // 2, W // 2)
+                           * 40.0, dtype=torch.float32, device=dev)
+              for i in range(n_images)]
+    im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
+    calibrate_heads(torch, model, predict, images[0], im_info)
+    predict(images[0], im_info)                          # warm-up
+    torch.cuda.synchronize()
+
+    def run(c4_from=None):
+        """The requests; returns (dets, ms, c4 features). With ``c4_from``
+        each request continues from that request's given c4 feature."""
+        dets, times, feats = [], [], []
+        for i, img in enumerate(images):
+            def swap(_m, _inp, out):
+                feats.append(out)
+                return None if c4_from is None else c4_from[i]
+            hook = model.c4.register_forward_hook(swap)
+            try:
+                t1 = time.perf_counter()
+                o = predict(img, im_info)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                hook.remove()
+            dets.append(o["dets"].cpu().numpy())
+        return dets, times, feats
+    zero_counters()
+    dets, times, c4s = run()
+    launches = {k: read_counter(k) for k in COUNTERS}
+    n_dets = [int((d[:, 0] >= 0).sum()) for d in dets]
+    log(f"[e2e fuse_res4] kernel path: ms/image "
+        f"{', '.join(f'{x:.3f}' for x in times)}; detections {n_dets}; "
+        f"launches {launches}; on {card}")
+    for d in dets:
+        if not np.isfinite(d).all() or d.shape != (int(cfg.TEST.max_per_image), 6):
+            fail(f"fuse_res4: bad detections: shape {d.shape}")
+    if min(n_dets) == 0:
+        fail("fuse_res4: a request returned no detections")
+    must = ["fused_bottleneck_stack", "geom_bias", "nms_keep_sorted"] + (
+        [] if tiny else ["stem_conv1_bn_relu"])
+    zero = [k for k in must if launches[k] <= 0]
+    if zero or launches["fused_bottleneck_stack"] != n_images:
+        fail(f"fuse_res4: kernels not launched as expected: {zero}, "
+             f"stack {launches['fused_bottleneck_stack']} for {n_images} requests")
+    with plain_kernels():
+        zero_counters()
+        plain_dets, plain_times, plain_c4s = run(c4s)
+        own_dets, _, _ = run()
+        stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
+    if stray:
+        fail(f"fuse_res4: plain run launched kernels: {stray}")
+    errs, bands, own = [], [], []
+    for i in range(n_images):
+        errs += [f"image {i}: {e}" for e in match_dets(plain_dets[i], dets[i])]
+        own.append(len(match_dets(own_dets[i], dets[i])))
+        bands.append(_band(torch, c4s[i], plain_c4s[i])[1:])
+    # the fused trunk against the conv trunk: the fold scales the weights
+    # before the bf16 cast, the conv path after the conv
+    with torch.inference_mode():
+        conv = model.c4(images[0][None])
+    _, rel, corr = _band(torch, c4s[0], conv)
+    c4_ok = all(r <= 3e-2 and c > 0.9999 for r, c in bands)
+    log(f"[e2e fuse_res4] plain path: ms/image "
+        f"{', '.join(f'{x:.3f}' for x in plain_times)}; c4 kernel vs plain "
+        f"{', '.join(f'{r:.2e} of max, corr {c:.7f}' for r, c in bands)} (tol "
+        f"3e-2, 0.9999); from the kernel path's c4, kernel vs plain "
+        f"top-{TOP_K} (IoU>={IOU_MIN}, |ds|<={SCORE_ATOL}): "
+        f"{'OK' if not errs else f'{len(errs)} mismatches'}; from its own c4 "
+        f"(not held): {own} of {TOP_K} unmatched; fused c4 vs conv c4: corr "
+        f"{corr:.6f} (tol 0.999), max diff {rel:.2e} of max")
+    if errs:
+        for e in errs[:20]:
+            log(f"  {e}")
+        fail("fuse_res4: kernel path outside the bands of the plain path")
+    if not (c4_ok and corr >= 0.999):
+        fail("fuse_res4: the fused c4 feature strays from the plain or the conv trunk")
+    return launches, statistics.median(times), model
+
+
+def run_fused_trunk(torch, dev, model, card: str = "", tiny: bool = False):
+    """ResNet101C4 with trunk_folded on the flagship's 608x1024 image (every
+    res2..res4 block a kernel), against the plain versions and the conv
+    trunk; CUDA-event times of the conv trunk, FUSE_RES4 and trunk_folded.
+    Returns the launch counts of the trunk_folded call."""
+    from relation_tpu_torch.core.predictor import prepare_res4_folded
+    from relation_tpu_torch.entry import BUCKET
+    from relation_tpu_torch.models.backbone import fold_trunk_params
+    H, W = (64, 128) if tiny else BUCKET
+    x = torch.tensor(np.random.RandomState(23).randn(1, 12, H // 2, W // 2) * 40.0,
+                     dtype=torch.float32, device=dev)
+    c4 = model.c4
+    trunk = fold_trunk_params(c4)
+    res4 = prepare_res4_folded(model, True)
+    with torch.inference_mode():
+        zero_counters()
+        got = c4(x, None, trunk)
+        torch.cuda.synchronize()
+        launches = {k: read_counter(k) for k in COUNTERS}
+        with plain_kernels():
+            zero_counters()
+            plain = c4(x, None, trunk)
+            stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
+        conv = c4(x)
+    if stray:
+        fail(f"trunk_folded: plain run launched kernels: {stray}")
+    want = {"fused_bottleneck_stack": 3, "fused_proj_bottleneck": 3,
+            "stem_conv1_bn_relu": 1}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"trunk_folded: launches {launches}, expected {want}")
+    _, rel, corr = _band(torch, got, plain)
+    _, conv_rel, conv_corr = _band(torch, got, conv)
+    ok = (rel <= 3e-2 and corr > 0.9999 and conv_corr >= 0.999
+          and bool(torch.isfinite(got.float()).all()))
+    # one call between the events: the conv trunk's ~330 launches take the
+    # host longer to queue than the card takes to run them, so a longer
+    # window would time the host
+    with torch.inference_mode():
+        conv_ms = time_ms(torch, lambda: c4(x), inner=1, reps=11)
+        res4_ms = time_ms(torch, lambda: c4(x, res4), inner=1, reps=11)
+        trunk_ms = time_ms(torch, lambda: c4(x, None, trunk), inner=1, reps=11)
+    log(f"[trunk] trunk_folded c4 {tuple(got.shape)}: vs plain versions "
+        f"{rel:.2e} of max (tol 3e-2), corr {corr:.7f} (tol 0.9999); vs conv "
+        f"trunk {conv_rel:.2e} of max, corr {conv_corr:.6f} (tol 0.999) "
+        f"{'OK' if ok else 'FAIL'}; launches {launches}")
+    log(f"[trunk] c4 trunk ms (CUDA events, stem included) at {H}x{W}: conv "
+        f"{conv_ms:.4f}, FUSE_RES4 {res4_ms:.4f}, trunk_folded {trunk_ms:.4f}; "
+        f"on {card}")
+    if not ok:
+        fail("trunk_folded: the all-kernel trunk disagrees")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phases 5 and 7: the train step
 # --------------------------------------------------------------------------
 
@@ -988,7 +1354,8 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels", "dcn"], default="all")
+    ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk"],
+                    default="all")
     args = ap.parse_args()
     try:
         import torch
@@ -1045,11 +1412,20 @@ def main() -> None:
             check_attention_full, np.random.RandomState(2)),
         "dconv_col2im": (csrc + "dconv_col2im.cu", pallas + "dconv_col2im.py:71",
                          check_col2im, np.random.RandomState(3)),
+        "fused_bottleneck_stack": (csrc + "bottleneck.cu", pallas + "res4.py:126",
+                                   check_stack, np.random.RandomState(5)),
+        "fused_proj_bottleneck": (csrc + "bottleneck.cu",
+                                  pallas + "bottleneck_proj.py:86", check_proj,
+                                  np.random.RandomState(6)),
     }
     if args.phase == "dcn":
         checks = {"dconv_col2im": checks["dconv_col2im"]}
+    if args.phase == "trunk":
+        checks = {k: checks[k] for k in ("fused_bottleneck_stack",
+                                         "fused_proj_bottleneck")}
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
-    check_nms_classic(torch, dev, np.random.RandomState(4))
+    if args.phase != "trunk":
+        check_nms_classic(torch, dev, np.random.RandomState(4))
     if args.phase == "kernels":
         log("[done] kernel phase only: no device line")
         return
@@ -1067,6 +1443,16 @@ def main() -> None:
         log(f"[e2e] flagship median ms/image {ms_image:.3f} on {card}")
         add(run_training(torch, dev, card))
         torch.cuda.empty_cache()
+    if args.phase in ("all", "trunk"):
+        fused_launches, fused_ms, model = run_fused_flagship(torch, dev, card)
+        add(fused_launches)
+        log(f"[e2e] flagship with FUSE_RES4 median ms/image {fused_ms:.3f} on {card}")
+        add(run_fused_trunk(torch, dev, model, card))
+        del model
+        torch.cuda.empty_cache()
+    if args.phase == "trunk":
+        log(f"[done] trunk phases only: launches {launches}; no device line")
+        return
     dcn_launches, dcn_ms = run_dcn_inference(torch, dev, card)
     add(dcn_launches)
     log(f"[e2e] dcn_learn_nms median ms/image {dcn_ms:.3f} on {card}")

@@ -153,8 +153,9 @@ def default_config() -> AttrDict:
     # ---- extensions of the JAX package (not present in the reference) ----
     # Kept key for key so that configs and YAMLs written for relation_tpu load
     # here unchanged. The port reads COMPUTE_DTYPE and HEAD_DTYPE (dtype
-    # policy, core/trainer.py::build_model) and ROI_METHOD; the others select
-    # TPU/XLA code paths of relation_tpu and are accepted and ignored.
+    # policy, core/trainer.py::build_model), ROI_METHOD, FUSE_RES4 (the fused
+    # res4 stack kernel at inference, entry.py) and GRAD_CLIP; the others
+    # select TPU/XLA code paths of relation_tpu and are accepted and ignored.
     TPU = config.TPU = AttrDict()
     TPU.IMAGE_BUCKETS = [(608, 1024), (800, 1024), (1024, 1024)]
     TPU.MAX_GT = 100
@@ -173,7 +174,7 @@ def default_config() -> AttrDict:
     TPU.DCN_POOL_DTYPE = "bfloat16"
     TPU.LNMS_ATTN = "pallas"
     TPU.FPN_TOPK = "approx"
-    TPU.FUSE_RES4 = False
+    TPU.FUSE_RES4 = False              # res4b1..b22 as one stack kernel
     TPU.GRAD_CLIP = 0.0
     TPU.FPN_SPLIT_PREDICT = True
     TPU.LNMS_REMAT = False

@@ -9,8 +9,11 @@ The FPN / split / sharded / rcnn variants come in later slices of the port.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
+from relation_tpu_torch.models.backbone import fold_res4_params
 from relation_tpu_torch.models.detector import RelationRCNN
 from relation_tpu_torch.models.learn_nms import merge_multi_score
 from relation_tpu_torch.models.rpn import generate_proposals
@@ -59,18 +62,46 @@ def _topk_detections(cls_ids, scores, boxes, valid, max_det: int):
     ], dim=1)
 
 
+def prepare_res4_folded(model: RelationRCNN, enabled: bool = False):
+    """The BN-folded res4b1..b22 weight stacks that switch the trunk to the
+    fused stack kernel (backbone.fold_res4_params), in the trunk's dtype, or
+    None when ``enabled`` (cfg.TPU.FUSE_RES4) is off or the model has no
+    ResNet-101 C4 trunk (relation_tpu/core/predictor.py::
+    prepare_res4_folded). Pass the result to ``predict(..., res4_folded)``.
+
+    The folds are computed once and kept with the model; a change to any of
+    the weights they read (load_state_dict, an update in place) makes the
+    next call fold again. Unlike the JAX function this returns the folds on
+    the CPU too: there the stack runs its plain PyTorch version, not an
+    interpreter."""
+    if not enabled or model.backbone != "resnet101":
+        return None
+    c4 = model.c4
+    tensors = [t for u in c4.units(4)[1:]
+               for t in itertools.chain(u.parameters(), u.buffers())]
+    key = (c4.dtype, tensors[0].device) + tuple(
+        (t.data_ptr(), t._version) for t in tensors)
+    cached = model.__dict__.get("_res4_folded")
+    if cached is None or cached[0] != key:
+        cached = model.__dict__["_res4_folded"] = (
+            key, fold_res4_params(c4, c4.dtype))
+    return cached[1]
+
+
 def make_predict_fn(model: RelationRCNN, cfg):
     """Build the single-image inference function of a C4 model (plain,
     relation, DCN; learned-NMS tail when TEST.LEARN_NMS, else the classic
     tail: per-class greedy NMS, or soft-NMS when TEST.SOFTNMS).
 
-    Returns predict(image, im_info) -> dict with 'dets' [max_per_image, 6]
+    Returns predict(image, im_info, res4_folded=None) -> dict with 'dets'
+    [max_per_image, 6]
     and the intermediate outputs (rois, roi_scores, cls_score, bbox_pred,
     fc2, and nms_multi_score, sorted_bbox, sorted_score, final_score of the
     learned-NMS tail or cls_prob, pred_boxes of the classic one). image is
     s2d planar [12, H/2, W/2] or NHWC [H, W, 3] (f32, or uint8 before mean
     subtraction); im_info [3] = (h, w, scale). Inputs may live on the host:
-    they are moved to the model's device."""
+    they are moved to the model's device. ``res4_folded``
+    (``prepare_res4_folded``) runs res4b1..b22 as the fused stack kernel."""
     stride = int(cfg.network.RPN_FEAT_STRIDE)
     device = next(model.parameters()).device
     base_anchors = torch.as_tensor(
@@ -154,11 +185,11 @@ def make_predict_fn(model: RelationRCNN, cfg):
         return classic_tail(cls_score, bbox_deltas, rois, roi_real, im_info)
 
     @torch.inference_mode()
-    def predict(image, im_info):
+    def predict(image, im_info, res4_folded=None):
         image = torch.as_tensor(image, device=device)
         im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
         image = _image_from_u8(image, im_info, pixel_means)
-        feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
+        feat, rpn_cls, rpn_bbox = model.features_and_rpn(image, res4_folded)
         fg_prob = torch.softmax(rpn_cls, dim=-1)[..., 1]
         rois, roi_scores, roi_real = generate_proposals(
             fg_prob, rpn_bbox, base_anchors, im_info, stride, pre_n, post_n,

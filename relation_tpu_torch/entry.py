@@ -82,18 +82,34 @@ def flagship_cfg(tiny_shapes: bool = False):
     return family_cfg("flagship", tiny_shapes)
 
 
-def entry(family: str = "flagship", device="cuda", seed: int = 0):
+def entry(family: str = "flagship", device="cuda", seed: int = 0, cfg=None):
     """(predict, (image, im_info)): one family at full width with weights
     from ``init_params(model, seed)``, and a zero s2d image of the 608x1024
-    bucket with its im_info, on ``device``."""
+    bucket with its im_info, on ``device``. ``cfg`` (default
+    ``family_cfg(family)``) is the config the model is built from.
+
+    With cfg.TPU.FUSE_RES4 set, predict runs res4b1..b22 as the fused stack
+    kernel on weights folded once and kept with the model
+    (core/predictor.py::prepare_res4_folded), as __graft_entry__.py::entry
+    does. ``predict.model`` is the model it serves."""
     from relation_tpu_torch.convert import init_params
-    from relation_tpu_torch.core.predictor import make_predict_fn
+    from relation_tpu_torch.core.predictor import (make_predict_fn,
+                                                   prepare_res4_folded)
     from relation_tpu_torch.core.trainer import build_model
 
-    cfg = family_cfg(family)
+    cfg = family_cfg(family) if cfg is None else cfg
     model = init_params(build_model(cfg, device=device), seed)
     H, W = BUCKET
     dev = next(model.parameters()).device
     image = torch.zeros((12, H // 2, W // 2), dtype=torch.float32, device=dev)
     im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
-    return make_predict_fn(model, cfg), (image, im_info)
+    predict_fn = make_predict_fn(model, cfg)
+    fuse = bool(cfg.TPU.get("FUSE_RES4", False))
+    prepare_res4_folded(model, fuse)
+
+    def predict(image, im_info):
+        # the folds kept with the model (folded again only after a weight
+        # changed)
+        return predict_fn(image, im_info, prepare_res4_folded(model, fuse))
+    predict.tail, predict.model = predict_fn.tail, model
+    return predict, (image, im_info)

@@ -17,6 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from relation_tpu_torch.ops.deform import deformable_conv_batched
+from relation_tpu_torch.ops.kernels.bottleneck_proj import fused_proj_bottleneck
+from relation_tpu_torch.ops.kernels.res4 import fused_bottleneck_stack
 from relation_tpu_torch.ops.kernels.stem import stem_conv1_bn_relu
 
 
@@ -101,7 +103,7 @@ class Bottleneck(nn.Module):
                  stride: int = 1, dilation: int = 1, has_proj: bool = False):
         super().__init__()
         p = prefix
-        self.has_proj = has_proj
+        self.prefix, self.has_proj = p, has_proj
         if has_proj:
             setattr(self, f"res{p}_branch1", _conv(cin, out, 1, stride))
             setattr(self, f"bn{p}_branch1", FrozenBatchNorm(out))
@@ -165,11 +167,23 @@ class ResNet101C4(nn.Module):
 
     The s2d stem of a bf16 trunk is the fused stem kernel
     (ops/kernels/stem.py), any shape; an f32 trunk runs the same tap matmul
-    in f32. res4_folded / trunk_folded (TPU-only fused Pallas stacks) are
-    not ported."""
+    in f32. For a single image the bottleneck blocks can run as kernels,
+    with the dispatch of relation_tpu's ResNet101C4 (backbone.py:221-314):
+
+    - ``trunk_folded`` (``fold_trunk_params``), both stem-output dims
+      divisible by 4: every res2..res4 block is a kernel, one
+      ``fused_proj_bottleneck`` and one ``fused_bottleneck_stack`` a stage;
+    - ``res4_folded`` (``fold_res4_params``), or ``fuse_res4=True`` with the
+      fold taken in the graph at every call: res4a runs as a Bottleneck and
+      res4b1..b22 as one ``fused_bottleneck_stack``; ``fuse_res4=False``
+      turns the stack off;
+    - otherwise, and for a batch of more than one image, the conv path.
+
+    The kernels run on [H, W, C] maps: the trunk changes layout once on the
+    way in and once on the way out."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 freeze_through: int = 0):
+                 freeze_through: int = 0, fuse_res4: bool | None = None):
         super().__init__()
         self.dtype = dtype
         # no gradient below the end of this stage (0 = none; 2, 3 or 4): the
@@ -178,6 +192,7 @@ class ResNet101C4(nn.Module):
         # frozen by the trainer, so no gradient is lost, and none of their
         # activations is kept for a backward.
         self.freeze_through = freeze_through
+        self.fuse_res4 = fuse_res4
         self.conv1 = _Conv1Weights()
         self.bn_conv1 = FrozenBatchNorm(64)
         i, cin = 0, 64
@@ -187,12 +202,12 @@ class ResNet101C4(nn.Module):
                     name, cin, mid, out, stride if u == 0 else 1,
                     has_proj=(u == 0)))
                 i, cin = i + 1, out
-        self.n_units = i
 
-    def _frozen_units(self) -> int:
-        """Units of the stages 2..freeze_through."""
-        return sum(n for stage, (n, _, _, _) in _PLAN.items()
-                   if stage <= self.freeze_through)
+    def units(self, stage: int):
+        """The Bottleneck modules of one stage, res<stage>a first."""
+        first = sum(n for s, (n, _, _, _) in _PLAN.items() if s < stage)
+        return [getattr(self, f"Bottleneck_{first + u}")
+                for u in range(_PLAN[stage][0])]
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         w7 = self.conv1.weight
@@ -217,16 +232,99 @@ class ResNet101C4(nn.Module):
         # MXNet pool1: 3x3/2, pad 1 (padding never wins the max)
         return F.max_pool2d(out, 3, 2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        frozen = self._frozen_units()
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and self.freeze_through < 2):
+    def forward(self, x: torch.Tensor, res4_folded=None,
+                trunk_folded=None) -> torch.Tensor:
+        grad = torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and self.freeze_through < 2):
             x = self.stem(x)
-            for i in range(frozen):
-                x = getattr(self, f"Bottleneck_{i}")(x)
-        for i in range(frozen, self.n_units):
-            x = getattr(self, f"Bottleneck_{i}")(x)
+        if trunk_folded is not None and (x.shape[2] % 4 or x.shape[3] % 4):
+            # the stride-2 decimation of res3a and res4a needs even dims at
+            # both stages; the conv path's ceil-mode sizes differ for odd ones
+            trunk_folded = None
+        if trunk_folded is not None and x.shape[0] == 1:
+            y = x[0].permute(1, 2, 0).to(self.dtype).contiguous()
+            for stage, (_, _, _, stride) in _PLAN.items():
+                f = trunk_folded[stage]
+                y = fused_proj_bottleneck(y, *f["proj"], stride=stride)
+                if f["stack"] is not None:
+                    y = fused_bottleneck_stack(y, *f["stack"])
+            return y.permute(2, 0, 1)[None].contiguous()
+        for stage in _PLAN:
+            units = self.units(stage)
+            fuse = (stage == 4 and x.shape[0] == 1
+                    and self.fuse_res4 is not False
+                    and (self.fuse_res4 is True or res4_folded is not None))
+            with torch.set_grad_enabled(grad and stage > self.freeze_through):
+                if fuse:
+                    x = units[0](x)
+                    stack = (res4_folded if res4_folded is not None
+                             else _fold_stage(units, self.dtype)["stack"])
+                    y = x[0].permute(1, 2, 0).to(self.dtype).contiguous()
+                    y = fused_bottleneck_stack(y, *stack)
+                    x = y.permute(2, 0, 1)[None].contiguous()
+                else:
+                    for unit in units:
+                        x = unit(x)
         return x
+
+
+def _bn_fold(bn: FrozenBatchNorm, eps: float):
+    """(scale, bias) of a FrozenBatchNorm in f32, with ``eps``."""
+    scale = bn.gamma / torch.sqrt(bn.moving_var + eps)
+    return scale, bn.beta - bn.moving_mean * scale
+
+
+def _fold_tower(unit: Bottleneck, dtype: torch.dtype, eps: float = 1e-5):
+    """BN-fold the branch2 tower of one Bottleneck -> (wa [C, Cmid], b1,
+    w3 [9*Cmid, Cmid], b2, wc [Cmid, C], b3): weights scaled in f32 and cast
+    to ``dtype``, w3 in tap-major rows (dy*3 + dx)*Cmid + ci, biases f32
+    (relation_tpu/models/backbone.py::_fold_tower without the TPU's Cmid
+    padding, which only served Mosaic's lane-aligned weight copies)."""
+    p = unit.prefix
+    conv = {s: getattr(unit, f"res{p}_branch2{s}").weight.float() for s in "abc"}
+    (sa, ba), (sb, bb), (sc, bc) = (
+        _bn_fold(getattr(unit, f"bn{p}_branch2{s}"), eps) for s in "abc")
+    mid = conv["b"].shape[0]
+    wa = conv["a"][:, :, 0, 0].t() * sa[None, :]
+    w3 = conv["b"].permute(2, 3, 1, 0) * sb                       # HWIO
+    wc = conv["c"][:, :, 0, 0].t() * sc[None, :]
+    return (wa.to(dtype), ba, w3.reshape(9 * mid, mid).to(dtype), bb,
+            wc.to(dtype), bc)
+
+
+def _fold_stage(units, dtype: torch.dtype, eps: float = 1e-5):
+    """{"proj": (w1, b1p, wa, b1, w3, b2, wc, b3) of the first unit,
+    "stack": the identity units' towers stacked along a leading block axis,
+    or None}."""
+    a = units[0]
+    s1, b1p = _bn_fold(getattr(a, f"bn{a.prefix}_branch1"), eps)
+    w1 = getattr(a, f"res{a.prefix}_branch1").weight.float()[:, :, 0, 0].t()
+    proj = ((w1 * s1[None, :]).to(dtype), b1p) + _fold_tower(a, dtype, eps)
+    stack = None
+    if len(units) > 1:
+        towers = [_fold_tower(u, dtype, eps) for u in units[1:]]
+        stack = tuple(torch.stack(t) for t in zip(*towers))
+    return {"proj": proj, "stack": stack}
+
+
+@torch.no_grad()
+def fold_trunk_params(c4: ResNet101C4, dtype: torch.dtype = torch.bfloat16,
+                      eps: float = 1e-5):
+    """BN-folded weights of every res2..res4 block, for
+    ``ResNet101C4.forward(x, trunk_folded=...)``: {stage: {"proj": (w1, b1p,
+    wa, b1, w3, b2, wc, b3), "stack": (wa, b1, w3, b2, wc, b3) stacked, or
+    None}} on the trunk's device. Run once per set of weights, not per
+    request (relation_tpu/models/backbone.py::fold_trunk_params)."""
+    return {stage: _fold_stage(c4.units(stage), dtype, eps) for stage in _PLAN}
+
+
+@torch.no_grad()
+def fold_res4_params(c4: ResNet101C4, dtype: torch.dtype = torch.bfloat16,
+                     eps: float = 1e-5):
+    """The (wa, b1, w3, b2, wc, b3) stacks of res4b1..res4b22 for
+    ``ResNet101C4.forward(x, res4_folded=...)`` (the res4 subset of
+    ``fold_trunk_params``)."""
+    return _fold_stage(c4.units(4), dtype, eps)["stack"]
 
 
 class ResNet101C5(nn.Module):

@@ -74,13 +74,18 @@ class RelationRCNN(nn.Module):
                 class_agnostic=class_agnostic, bbox_means=bbox_means,
                 bbox_stds=bbox_stds, attn_dtype=head_dtype)
 
-    def features_and_rpn(self, image: torch.Tensor):
+    def features_and_rpn(self, image: torch.Tensor, res4_folded=None):
         """image [H, W, 3] or s2d [12, H/2, W/2] (mean-subtracted BGR); a 4D
         input is an explicit batch. -> (head_feat [(B,) h, w, 256],
-        rpn_cls [(B,) h, w, A, 2], rpn_bbox [(B,) h, w, A, 4])."""
+        rpn_cls [(B,) h, w, A, 2], rpn_bbox [(B,) h, w, A, 4]).
+        ``res4_folded`` (backbone.fold_res4_params) runs res4b1..b22 of a
+        single image as the fused stack kernel."""
         batched = image.dim() == 4
         x = image if batched else image[None]
-        c4 = self.c4(x)                                        # NCHW
+        if self.backbone == "resnet101":
+            c4 = self.c4(x, res4_folded)                       # NCHW
+        else:
+            c4 = self.c4(x)
         rpn_cls, rpn_bbox = self.rpn(c4)
         c5 = c4 if self.c5 is None else self.c5(c4)
         reduced = F.relu(self.conv_new_1(c5)).permute(0, 2, 3, 1)

@@ -11,8 +11,10 @@ through the same autograd.Functions and launch counters the card uses, and
 then calls ``run_flagship``, ``run_training``, ``run_dcn_inference`` and the
 DCN ``run_training`` with ``tiny=True`` (tiny trunk, 64x128 image; the tiny
 trunk has no res5, so the DCN rehearsal covers the deformable PSROI head, the
-classic NMS tail and the offset seeding, not the deformable conv). It prints
-what the script prints; its times are CPU times and mean nothing.
+classic NMS tail and the offset seeding, not the deformable conv), then
+``run_fused_flagship`` and ``run_fused_trunk`` (the full-depth trunk, as
+entry() builds it, on a 64x128 image). It prints what the script prints; its
+times are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -31,9 +33,12 @@ def install_stubs() -> None:
     import relation_tpu_torch.models.relation as rel
     import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
-    from relation_tpu_torch.ops.kernels import (dconv_col2im, geom_bias,
-                                                nms_attention, nms_kernel, stem)
+    import chip_smoke
+    from relation_tpu_torch.ops.kernels import (bottleneck_proj, dconv_col2im,
+                                                geom_bias, nms_attention,
+                                                nms_kernel, res4, stem)
     torch.cuda.synchronize = lambda *a, **k: None
+    chip_smoke.time_ms = lambda torch, fn, **k: (fn(), 0.0)[1]
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.empty_cache = lambda *a, **k: None
@@ -51,6 +56,7 @@ def install_stubs() -> None:
         nms_attention.nms_relation_attention_reference(pos, q, k, v, wg, bg,
                                                        wl, active, s))
     stem._launch = stem.stem_reference
+    res4._launch = res4.bottleneck_stack_reference
 
     # the model's calls, through the Functions and counters of the card path
     def counted(mod, attr, fn):
@@ -70,6 +76,9 @@ def install_stubs() -> None:
                                   nms_kernel.nms_keep_sorted_reference)
     deform.dconv_col2im = counted(dconv_col2im, "launches",
                                   dconv_col2im.dconv_col2im_reference)
+    bb.fused_bottleneck_stack = res4._Stack.apply
+    bb.fused_proj_bottleneck = counted(bottleneck_proj, "launches",
+                                       bottleneck_proj.proj_bottleneck_reference)
 
 
 def main() -> None:
@@ -82,6 +91,8 @@ def main() -> None:
     chip_smoke.run_dcn_inference(torch, cpu, card=card, tiny=True)
     chip_smoke.run_training(torch, cpu, card=card, tiny=True,
                             family="dcn_learn_nms", dense_steps=3, fused_steps=0)
+    _, _, model = chip_smoke.run_fused_flagship(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_fused_trunk(torch, cpu, model, card=card, tiny=True)
     print("rehearsal done: control flow only, no kernel ran")
 
 

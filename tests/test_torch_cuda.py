@@ -14,9 +14,11 @@ import torch
 
 from relation_tpu_torch.models.backbone import conv1_w4
 from relation_tpu_torch.ops.embeddings import extract_multi_position_matrix_t
-from relation_tpu_torch.ops.kernels import (dconv_col2im as DC, geom_bias as GB,
+from relation_tpu_torch.ops.kernels import (bottleneck_proj as BP,
+                                            dconv_col2im as DC, geom_bias as GB,
                                             nms_attention as NA,
-                                            nms_kernel as NK, stem as ST)
+                                            nms_kernel as NK, res4 as RS,
+                                            stem as ST)
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +413,106 @@ def test_classwise_nms_on_the_card_equals_the_cpu(dev, max_keep):
     want = classwise_nms(torch.tensor(boxes), torch.tensor(scores), 0.3, 0.05,
                          torch.tensor(valid), max_keep)
     assert torch.equal(got.cpu(), want) and bool(want.any())
+
+
+# --------------------------------------------------------------------------
+# the fused trunk: identity-bottleneck stack and projection bottleneck
+# --------------------------------------------------------------------------
+
+def _tower(rng, C, Cmid, dev, lead=()):
+    """(wa, b1, w3, b2, wc, b3) of folded bottlenecks: bf16 weights scaled
+    so that a long stack keeps its activations in range, f32 biases."""
+    def w(*shape, fan):
+        return _tens(rng.randn(*lead, *shape) / np.sqrt(fan), dev).to(torch.bfloat16)
+    def b(n):
+        return _tens(rng.randn(*lead, n) * 0.1, dev)
+    return (w(C, Cmid, fan=C), b(Cmid), w(9 * Cmid, Cmid, fan=9 * Cmid),
+            b(Cmid), w(Cmid, C, fan=4 * Cmid), b(C))
+
+
+def _map(rng, H, W, C, dev):
+    return _tens(np.maximum(rng.randn(H, W, C), 0), dev).to(torch.bfloat16)
+
+
+def _band(got, want):
+    """(max abs error / max |want|, correlation) of two bf16 maps."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    corr = float(torch.corrcoef(torch.stack([got.flatten(),
+                                             want.flatten()]))[0, 1])
+    return err, corr
+
+
+@pytest.mark.parametrize("H,W,C,Cmid,B", [(7, 9, 64, 64, 1), (13, 21, 256, 64, 2),
+                                          (19, 33, 512, 128, 3),
+                                          (10, 17, 1024, 256, 1),
+                                          (11, 13, 256, 128, 22)])
+def test_bottleneck_stack_kernel_matches_plain(dev, H, W, C, Cmid, B):
+    """Ragged maps (rows not a multiple of the 64-row tile), Cmid 64, 128 and
+    256, B = 1 to 22. Both sum exact bf16 products in f32 in other orders
+    and round y1, y2 and each block's output to bf16, so a few elements sit
+    one bf16 step apart and the step travels through the later blocks: one
+    block within 2^-7 of the largest element, 22 within 2e-2 and correlation
+    0.9999."""
+    rng = np.random.RandomState(H * W + B)
+    x = _map(rng, H, W, C, dev)
+    w = _tower(rng, C, Cmid, dev, (B,))
+    x0 = x.clone()
+    before = RS.launches
+    got = RS.fused_bottleneck_stack(x, *w)
+    assert RS.launches == before + 1
+    assert torch.equal(x, x0), "the caller's map was written"
+    assert got.dtype == torch.bfloat16 and got.shape == (H, W, C)
+    want = RS.bottleneck_stack_reference(x, *w)
+    err, corr = _band(got, want)
+    assert bool(torch.isfinite(got.float()).all())
+    assert err <= (2.0 ** -7 if B == 1 else 2e-2) and corr > 0.9999, (err, corr)
+
+
+@pytest.mark.parametrize("Hi,Wi,Cin,Cmid,Cout,stride", [
+    (14, 18, 64, 64, 256, 1), (26, 34, 256, 128, 512, 2),
+    (10, 22, 512, 256, 1024, 2), (7, 9, 128, 64, 128, 1)])
+def test_proj_bottleneck_kernel_matches_plain(dev, Hi, Wi, Cin, Cmid, Cout,
+                                              stride):
+    rng = np.random.RandomState(Hi * Wi + stride)
+    x = _map(rng, Hi, Wi, Cin, dev)
+    w1 = _tens(rng.randn(Cin, Cout) / np.sqrt(Cin), dev).to(torch.bfloat16)
+    b1p = _tens(rng.randn(Cout) * 0.1, dev)
+    tower = _tower(rng, Cin, Cmid, dev)[:4] + (
+        _tens(rng.randn(Cmid, Cout) / np.sqrt(Cmid), dev).to(torch.bfloat16),
+        _tens(rng.randn(Cout) * 0.1, dev))
+    before = BP.launches
+    got = BP.fused_proj_bottleneck(x, w1, b1p, *tower, stride=stride)
+    assert BP.launches == before + 1
+    assert got.shape == (Hi // stride, Wi // stride, Cout)
+    want = BP.proj_bottleneck_reference(x, w1, b1p, *tower, stride=stride)
+    err, corr = _band(got, want)
+    assert err <= 2.0 ** -7 and corr > 0.9999, (err, corr)
+
+
+def test_bottleneck_stack_gradient_and_refusals(dev):
+    """The gradient through the kernel is autograd of the plain version on
+    the same inputs; the wrappers refuse what the kernels do not take."""
+    rng = np.random.RandomState(3)
+    x = _map(rng, 9, 11, 128, dev)
+    w = _tower(rng, 128, 64, dev, (2,))
+    g = _tens(rng.randn(9, 11, 128), dev).to(torch.bfloat16)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (x,) + w]
+        return torch.autograd.grad(fn(*ins), ins, g)
+    before = RS.launches
+    got = grads(RS.fused_bottleneck_stack)
+    assert RS.launches == before + 1
+    want = grads(RS.bottleneck_stack_reference)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        RS.fused_bottleneck_stack(x.float(), *w)
+    with pytest.raises(ValueError):
+        RS.fused_bottleneck_stack(_map(rng, 4, 4, 96, dev),
+                                  *_tower(rng, 96, 64, dev, (1,)))
+    with pytest.raises(RuntimeError, match="no backward"):
+        BP.fused_proj_bottleneck(x.clone().requires_grad_(True),
+                                 _tens(rng.randn(128, 128), dev).bfloat16(),
+                                 _tens(rng.randn(128), dev), *_tower(rng, 128, 64, dev))

@@ -5,13 +5,17 @@
     python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain only
     python3 chip_smoke.py --phase dcn      # build, kernel checks, DCN phases only
     python3 chip_smoke.py --phase trunk    # build, trunk kernel checks, phases 8-9
+    python3 chip_smoke.py --phase fpn      # build, FPN-tail kernel checks, phase 10
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
-2. Holds each of the nine kernels against its plain PyTorch version on the
-   card, at the shapes the driven models give it (the NMS at the proposal
-   shape and at the classic tail's C=80, Np=512; the deformable col2im at
-   B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, with the
+2. Holds each of the twelve kernels against its plain PyTorch version on
+   the card, at the shapes the driven models give it (the NMS at the
+   proposal shape and at the classic tail's C=80, Np=512; the fused skip
+   attention at N=100 and at the FPN tail's N=150; the skip geometric bias
+   and the bias attention with and without class skipping at the FPN
+   learned-NMS tail's C=80, N=150, 16 or 80 classes active; the deformable
+   col2im at B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, with the
    run-to-run difference its atomics leave; the bottleneck stack at res4
    (22 blocks), res3 and res2 and the projection bottleneck at res2a, res3a
    and res4a of the 608x1024 trunk, on BN-folded weights of a seeded trunk),
@@ -52,7 +56,16 @@
 9. Runs ResNet101C4 on the 608x1024 image with trunk_folded (every res2..res4
    block a kernel), held against the plain versions and the conv trunk,
    and times the conv trunk, FUSE_RES4 and trunk_folded with CUDA events.
-10. Prints one JSON line describing every kernel (launches summed over the
+10. Serves the three FPN families through entry() at full width (prediction
+   layers calibrated): fpn_learn_nms in its default split form at the
+   default class threshold, with 16 active classes (the fused skip attention
+   at N=150) and with 56 (geometric bias + dense attention), then in its
+   single-module form with 16 (skip geometric bias + skip bias attention)
+   and 48 (geometric bias + bias attention); one fpn_relation request
+   (greedy per-class NMS tail) and one fpn request (soft-NMS tail). Each
+   learned-NMS request must launch its branch's kernels; every request is
+   held to the plain path in the bands of phase 4.
+11. Prints one JSON line describing every kernel (launches summed over the
    driven paths), then the device line.
 
 Any failure exits non-zero without the last line. Needs no network; the
@@ -355,9 +368,11 @@ def attention_inputs(torch, dev, rng, C=80, N=100, G=16, D=64, Fd=128, E=8):
 
 
 def attention_bound(A, C, N, G, D, Fd, E):
-    """Bound of the fused attention over A computed classes of C."""
+    """Bound of the fused attention over A computed classes of C, with the
+    product re-associated as attn @ (v @ Wl_g): the least work the function
+    needs."""
     flops = A * (2 * N * N * D * G + N * N * (32 * SINCOS_FLOPS + 2 * 64 * G)
-                 + 5 * N * N * G + 2 * N * N * Fd * G + 2 * N * Fd * E * G)
+                 + 5 * N * N * G + 2 * N * Fd * E * G + 2 * N * N * E * G)
     nbytes = A * 4 * (4 * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
         64 * G + G + G * Fd * E + C)
     return bound(nbytes, flops, F32_PEAK)
@@ -365,10 +380,15 @@ def attention_bound(A, C, N, G, D, Fd, E):
 
 def sdpa_ms(torch, pos, q, k, v, wg, bg, N, G, D, Fd):
     """Yardstick for the attention core: SDPA with the bias as a float mask."""
-    import torch.nn.functional as F
     from relation_tpu_torch.ops.kernels import geom_bias as GB
-    A = q.shape[0]
-    bias = GB.geom_bias_reference(pos, wg, bg)
+    return sdpa_bias_ms(torch, GB.geom_bias_reference(pos, wg, bg), q, k, v, G, D)
+
+
+def sdpa_bias_ms(torch, bias, q, k, v, G, D):
+    """SDPA over the heads of every class of q, with the [A, G, N, N] bias
+    as a float attention mask (the attention core, no linear_out)."""
+    import torch.nn.functional as F
+    A, N, Fd = q.shape[0], q.shape[1], v.shape[2]
     qs = q.reshape(A, N, G, D).transpose(1, 2)
     ks = k.reshape(A, N, G, D).transpose(1, 2)
     vs = v[:, None].expand(A, G, N, Fd)
@@ -377,34 +397,156 @@ def sdpa_ms(torch, pos, q, k, v, wg, bg, N, G, D, Fd):
 
 
 def check_attention(torch, dev, rng):
+    """Row 9 at the flagship's N=100 (FIRST_N 100; the JSON line) and at the
+    FPN learned-NMS tail's N=150 (FIRST_N 150), 16 of 80 classes active."""
     from relation_tpu_torch.ops.kernels import nms_attention as K
-    C, N, G, D, Fd, E, n_active = 80, 100, 16, 64, 128, 8, 16
-    pos, q, k, v, wg, bg, wl = attention_inputs(torch, dev, rng)
+    C, G, D, Fd, E, n_active = 80, 16, 64, 128, 8, 16
+    result = None
+    for N in (100, 150):
+        pos, q, k, v, wg, bg, wl = attention_inputs(torch, dev, rng, N=N)
+        act_np = np.zeros(C, np.int32)
+        act_np[rng.choice(C, n_active, replace=False)] = 1
+        active = torch.tensor(act_np, device=dev)
+        args = (pos, q, k, v, wg, bg, wl, active)
+        got = K.fused_nms_relation_attention_skip(*args)
+        want = K.nms_relation_attention_reference(*args)
+        torch.cuda.synchronize()
+        on = active.bool()
+        err = float((got[on] - want[on]).abs().max())
+        tol = 1e-4 * max(1.0, float(want[on].abs().max()))
+        ok = err <= tol
+        ms = time_ms(torch, lambda: K.fused_nms_relation_attention_skip(*args))
+        plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
+        idx = torch.nonzero(on).flatten()
+        library_ms = sdpa_ms(torch, pos[idx], q[idx], k[idx], v[idx], wg, bg,
+                             N, G, D, Fd)
+        bms, bby = attention_bound(n_active, C, N, G, D, Fd, E)
+        log(f"[kernel] nms_attention_skip C={C} N={N} active={n_active}: max abs "
+            f"err on active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
+            f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
+        if not ok:
+            fail(f"fused_nms_relation_attention_skip N={N} disagrees with its "
+                 "plain version")
+        if result is None:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=bby, library_ms=library_ms)
+    return result   # N=100, the shape of the earlier slices' JSON lines
+
+
+def fpn_tail_inputs(torch, dev, rng, n_active):
+    """The two-stage attention's inputs at the FPN learned-NMS tail: C=80,
+    N=150 (FIRST_N 150), G=16, D=64, F=128, E=8, with n_active classes
+    active."""
+    C = 80
+    pos, q, k, v, wg, bg, wl = attention_inputs(torch, dev, rng, C=C, N=150)
+    act_np = np.zeros(C, np.int32)
+    act_np[rng.choice(C, n_active, replace=False)] = 1
+    return pos, q, k, v, wg, bg, wl, torch.tensor(act_np, device=dev)
+
+
+def check_geom_bias_skip(torch, dev, rng):
+    """Row 3: the class-skipping geometric bias, 16 of 80 classes active."""
+    from relation_tpu_torch.ops.kernels import geom_bias as K
+    from relation_tpu_torch.ops.embeddings import extract_multi_position_matrix_t
+    C, N, G, n_active = 80, 150, 16, 16
+    w = torch.tensor(rng.randn(64, G) * 0.1, dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.randn(G) * 0.05, dtype=torch.float32, device=dev)
+    pos = extract_multi_position_matrix_t(torch.tensor(
+        np.stack([random_boxes(rng, N) for _ in range(C)], 1),
+        device=dev)).contiguous()
     act_np = np.zeros(C, np.int32)
     act_np[rng.choice(C, n_active, replace=False)] = 1
     active = torch.tensor(act_np, device=dev)
-    args = (pos, q, k, v, wg, bg, wl, active)
-    got = K.fused_nms_relation_attention_skip(*args)
-    want = K.nms_relation_attention_reference(*args)
+    M = N
+    got = K.fused_geometric_bias_skip(pos, w, b, active)
+    want = K.geom_bias_skip_reference(pos, w, b, active)
+    full = K._launch(pos, w, b, 100.0)
+    torch.cuda.synchronize()
+    on = active.bool()
+    err = float((got[on].exp() - want[on].exp()).abs().max())
+    clear = want[on].exp() > 1e-2
+    err_log = float((got[on] - want[on])[clear].abs().max())
+    same = torch.equal(got[on], full[on])
+    ok = (err <= 1e-5 and err_log <= 1e-4 and same
+          and bool(torch.isfinite(got[on]).all()))
+    ms = time_ms(torch, lambda: K.fused_geometric_bias_skip(pos, w, b, active))
+    plain_ms = time_ms(torch, lambda: K.geom_bias_skip_reference(pos, w, b, active))
+    pairs = n_active * N * M          # the work of the active classes only
+    bms, bby = bound(4 * (4 * pairs + G * pairs + 65 * G + C),
+                     pairs * (2 * 64 * G + 32 * SINCOS_FLOPS + 3 * G), F32_PEAK)
+    log(f"[kernel] geom_bias_skip C={C} N=M={N} active={n_active}: max|exp err| "
+        f"{err:.3e} (tol 1e-5), max|log err| where acc>1e-2 {err_log:.3e} (tol "
+        f"1e-4), active rows bit-equal to the unskipped kernel: {same}, "
+        f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms n/a bound_us {bms * 1e3:.2f} ({bby})")
+    if not ok:
+        fail("fused_geometric_bias_skip disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=None)
+
+
+def bias_attention_bound(A, C, N, G, D, Fd, E):
+    """Bound of the bias attention over A computed classes of C: QK^T, the
+    softmax, v @ Wl_g and attn @ (v @ Wl_g) (the re-associated product, the
+    least work the function needs); the bias, q, k, v of those classes read
+    and their output written once."""
+    flops = A * (2 * N * N * D * G + 5 * N * N * G + 2 * N * Fd * E * G
+                 + 2 * N * N * E * G)
+    nbytes = A * 4 * (G * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
+        G * Fd * E + C)
+    return bound(nbytes, flops, F32_PEAK)
+
+
+def _check_bias_attention(torch, dev, rng, skip: bool):
+    from relation_tpu_torch.ops.kernels import bias_attention as K
+    from relation_tpu_torch.ops.kernels.geom_bias import geom_bias_reference
+    G, D, E = 16, 64, 8
+    n_active = 16 if skip else 80
+    pos, q, k, v, wg, bg, wl, active = fpn_tail_inputs(torch, dev, rng, n_active)
+    C, N, Fd = q.shape[0], q.shape[1], v.shape[2]
+    bias = geom_bias_reference(pos, wg, bg).contiguous()
+    del pos
+    if skip:
+        def kernel():
+            return K.fused_bias_attention_skip(bias, q, k, v, wl, active)
+    else:
+        def kernel():
+            return K.fused_bias_attention(bias, q, k, v, wl)
+
+    def plain():
+        return K.bias_attention_reference(bias, q, k, v, wl,
+                                          active if skip else None)
+    got, want = kernel(), plain()
     torch.cuda.synchronize()
     on = active.bool()
     err = float((got[on] - want[on]).abs().max())
     tol = 1e-4 * max(1.0, float(want[on].abs().max()))
-    ok = err <= tol
-    ms = time_ms(torch, lambda: K.fused_nms_relation_attention_skip(*args))
-    plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
+    ok = err <= tol and bool(torch.isfinite(got[on]).all())
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain, inner=2, reps=11)
     idx = torch.nonzero(on).flatten()
-    library_ms = sdpa_ms(torch, pos[idx], q[idx], k[idx], v[idx], wg, bg,
-                         N, G, D, Fd)
-    bms, bby = attention_bound(n_active, C, N, G, D, Fd, E)
-    log(f"[kernel] nms_attention_skip C={C} N={N} active={n_active}: max abs "
-        f"err on active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
-        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
-        f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
+    library_ms = sdpa_bias_ms(torch, bias[idx], q[idx], k[idx], v[idx], G, D)
+    bms, bby = bias_attention_bound(n_active, C, N, G, D, Fd, E)
+    name = "bias_attention_skip" if skip else "bias_attention"
+    log(f"[kernel] {name} C={C} N={N} active={n_active}: max abs err on active "
+        f"rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
+        f"bound_us {bms * 1e3:.2f} ({bby})")
     if not ok:
-        fail("fused_nms_relation_attention_skip disagrees with its plain version")
+        fail(f"fused_{name} disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=bby, library_ms=library_ms)
+
+
+def check_bias_attention(torch, dev, rng):
+    """Row 7 over all 80 classes (the dense two-stage tail)."""
+    return _check_bias_attention(torch, dev, rng, skip=False)
+
+
+def check_bias_attention_skip(torch, dev, rng):
+    """Row 8 with 16 of 80 classes active (the compact two-stage tail)."""
+    return _check_bias_attention(torch, dev, rng, skip=True)
 
 
 def check_attention_full(torch, dev, rng):
@@ -704,9 +846,12 @@ COUNTERS = {"geom_bias": ("geom_bias", "launches"),
             "fused_nms_relation_attention": ("nms_attention", "full_launches"),
             "dconv_col2im": ("dconv_col2im", "launches"),
             "fused_bottleneck_stack": ("res4", "launches"),
-            "fused_proj_bottleneck": ("bottleneck_proj", "launches")}
+            "fused_proj_bottleneck": ("bottleneck_proj", "launches"),
+            "fused_geometric_bias_skip": ("geom_bias", "skip_launches"),
+            "fused_bias_attention": ("bias_attention", "launches"),
+            "fused_bias_attention_skip": ("bias_attention", "skip_launches")}
 INFERENCE_KERNELS = ("geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu",
-                     "fused_nms_relation_attention_skip")
+                     "fused_nms_relation_attention_skip", "fused_bias_attention")
 
 
 def _counter(name):
@@ -735,15 +880,20 @@ def plain_kernels():
     import relation_tpu_torch.models.relation as rel
     import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
-    from relation_tpu_torch.ops.kernels import (bottleneck_proj, dconv_col2im,
-                                                geom_bias, nms_attention,
-                                                nms_kernel, res4, stem)
+    from relation_tpu_torch.ops.kernels import (bias_attention, bottleneck_proj,
+                                                dconv_col2im, geom_bias,
+                                                nms_attention, nms_kernel, res4,
+                                                stem)
     swaps = [(deform, "dconv_col2im", dconv_col2im.dconv_col2im_reference),
              (bb, "fused_bottleneck_stack", res4.bottleneck_stack_reference),
              (bb, "fused_proj_bottleneck", bottleneck_proj.proj_bottleneck_reference),
              (bb, "stem_conv1_bn_relu",
               lambda x, w4, s, b: stem.stem_reference(x, w4, s, b)),
              (rel, "fused_geometric_bias", geom_bias.geom_bias_reference),
+             (rel, "fused_geometric_bias_skip", geom_bias.geom_bias_skip_reference),
+             (rel, "fused_bias_attention", bias_attention.bias_attention_reference),
+             (rel, "fused_bias_attention_skip",
+              bias_attention.bias_attention_reference),
              (rel, "fused_nms_relation_attention_skip",
               nms_attention.nms_relation_attention_reference),
              (rel, "fused_nms_relation_attention",
@@ -788,6 +938,17 @@ def match_dets(ref, new):
     return errs
 
 
+def with_active(make, model, cfg, out, k: int):
+    """A predict function (``make(model, cfg)``) whose learned-NMS class
+    threshold lets exactly k classes through on the request that gave
+    ``out``: halfway between the k-th and the (k+1)-th largest class maximum
+    of its sorted scores (the head's class filter, relation.py:224)."""
+    m = np.sort(out["sorted_score"].max(0).values.cpu().numpy())[::-1]
+    c = cfg.copy()
+    c.TEST.LEARN_NMS_CLASS_SCORE_TH = float((m[k - 1] + m[k]) / 2)
+    return make(model, c)
+
+
 def run_flagship(torch, dev, n_images: int = 2, n_active: int = 16,
                  tiny: bool = False):
     """The flagship requests, kernel path then plain path. ``tiny`` (a
@@ -817,18 +978,14 @@ def run_flagship(torch, dev, n_images: int = 2, n_active: int = 16,
 
     # the class filter threshold picks the learned-NMS branch per request
     # (relation.py:224): the default 0.01 lets the data decide; two more
-    # requests on image 0 fix it, 56 active classes (> C/2: dense geometric
-    # bias + batched attention) and n_active (<= C/2: the skip kernel)
+    # requests on image 0 fix it, 56 active classes (> C/2: the dense path,
+    # geometric bias + bias attention) and n_active (<= C/2: the skip kernel)
     out0 = predict(images[0], im_info)                 # warm-up
-    m = np.sort(out0["sorted_score"].max(0).values.cpu().numpy())[::-1]
-
-    def with_active(k):
-        c = cfg.copy()
-        c.TEST.LEARN_NMS_CLASS_SCORE_TH = float((m[k - 1] + m[k]) / 2)
-        return make_predict_fn(model, c)
     reqs = [(f"image {i}", predict, img) for i, img in enumerate(images)]
-    reqs += [("dense, 56 active", with_active(56), images[0]),
-             (f"skip, {n_active} active", with_active(n_active), images[0])]
+    reqs += [("dense, 56 active", with_active(make_predict_fn, model, cfg, out0, 56),
+              images[0]),
+             (f"skip, {n_active} active",
+              with_active(make_predict_fn, model, cfg, out0, n_active), images[0])]
     for _, fn, img in reqs[-2:]:
         fn(img, im_info)                                # warm-up
     torch.cuda.synchronize()
@@ -1017,9 +1174,14 @@ def calibrate_heads(torch, model, predict, image, im_info) -> None:
     degenerate boxes."""
     targets = {model.rpn.rpn_cls_score: 2.0, model.rpn.rpn_bbox_pred: 0.2,
                model.cls_score: 2.0, model.bbox_pred: 0.2}
-    hooks = []
+    hooks, done = [], set()
 
     def calibrate(m, _inp, out):
+        # once a layer: the FPN's RPN head runs on five levels a request, and
+        # is scaled on the first (P6)
+        if m in done:
+            return None
+        done.add(m)
         bias = m.bias.view((1, -1) + (1,) * (out.dim() - 2)).to(out.dtype)
         scale = targets[m] / max(float((out - bias).float().std()), 1e-12)
         # detach() shares the version counter, so the bf16 copy that
@@ -1195,6 +1357,146 @@ def run_fused_trunk(torch, dev, model, card: str = "", tiny: bool = False):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the FPN families
+# --------------------------------------------------------------------------
+
+def serve(torch, reqs, im_info):
+    """Run (label, predict, image) requests in order. Returns (dets, host ms,
+    the kernel launches of each request)."""
+    dets, times, counts = [], [], []
+    for _, fn, img in reqs:
+        before = {k: read_counter(k) for k in COUNTERS}
+        t1 = time.perf_counter()
+        o = fn(img, im_info)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        dets.append(o["dets"].cpu().numpy())
+        counts.append({k: read_counter(k) - v for k, v in before.items()})
+    return dets, times, counts
+
+
+def run_fpn(torch, dev, card: str = "", tiny: bool = False):
+    """The three FPN families served through entry() at full width
+    (init_params weights, prediction layers calibrated by
+    ``calibrate_heads``): fpn_learn_nms in its default split form (a request
+    at the default class threshold, one with 16 active classes, the fused
+    skip attention at N=150, and one with 56, the geometric-bias kernel and
+    the dense attention), the same model's single-module form
+    (TPU.FPN_SPLIT_PREDICT False: 16 active, the skip geometric bias and the
+    skip bias attention; 48 active, the geometric bias and the bias attention
+    over every class), one fpn_relation request (greedy per-class NMS tail)
+    and one fpn request (soft-NMS tail). Each request's learned-NMS kernels
+    are counted and held to the branch it must take; the kernel path is held
+    to the plain path in the bands of phase 4. ``tiny`` (a rehearsal on the
+    CPU) cuts the proposal counts and the image to 64x128; the model stays
+    full depth. Returns (launches, {family: ms/image of the default
+    request})."""
+    from relation_tpu_torch.core.predictor import build_predict_fn
+    from relation_tpu_torch.entry import BUCKET, entry, family_cfg
+    H, W = (64, 128) if tiny else BUCKET
+    images = [torch.tensor(np.random.RandomState(31 + i).randn(12, H // 2, W // 2)
+                           * 40.0, dtype=torch.float32, device=dev)
+              for i in range(2)]
+    im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
+    total = {k: 0 for k in COUNTERS}
+    ms_image = {}
+    # learned-NMS attention launches each request must show (the head's two
+    # relation modules add two geom_bias launches to every relation request)
+    lnms = ("fused_nms_relation_attention_skip", "fused_geometric_bias_skip",
+            "fused_bias_attention_skip", "fused_bias_attention")
+    for family in ("fpn_learn_nms", "fpn_relation", "fpn"):
+        cfg = family_cfg(family, tiny_shapes=tiny)
+        if tiny:
+            cfg.TEST.SCORE_THRESH = 0.0
+        t0 = time.perf_counter()
+        predict, _ = entry(family, device=dev, cfg=cfg)
+        model = predict.model
+        calibrate_heads(torch, model, predict, images[0], im_info)
+        out0 = predict(images[0], im_info)
+        torch.cuda.synchronize()
+        log(f"[e2e {family}] built and calibrated through entry(): "
+            f"{sum(p.numel() for p in model.parameters())} params, "
+            f"{time.perf_counter() - t0:.1f} s")
+        reqs = [("default threshold", predict, images[0])]
+        want = {}
+        if family == "fpn_learn_nms":
+            single = cfg.copy()
+            single.TPU.FPN_SPLIT_PREDICT = False
+            reqs = [("split, image 1, default threshold", predict, images[1])]
+            for form, c, k, launched in (
+                    ("split", cfg, 16, {"fused_nms_relation_attention_skip": 1}),
+                    ("split", cfg, 56, {"geom_bias": 3,
+                                        "fused_bias_attention": 1}),
+                    ("single", single, 16, {"fused_geometric_bias_skip": 1,
+                                            "fused_bias_attention_skip": 1}),
+                    ("single", single, 48, {"geom_bias": 3,
+                                            "fused_bias_attention": 1})):
+                label = f"{form}, image 0, {k} active"
+                reqs.append((label, with_active(build_predict_fn, model, c, out0, k),
+                             images[0]))
+                want[label] = {n: launched.get(n, 0) for n in lnms}
+                want[label]["geom_bias"] = launched.get("geom_bias", 2)
+        for _, fn, img in reqs[1:]:
+            fn(img, im_info)                            # warm-up
+        torch.cuda.synchronize()
+
+        zero_counters()
+        dets, times, counts = serve(torch, reqs, im_info)
+        launches = {k: read_counter(k) for k in COUNTERS}
+        n_dets = [int((d[:, 0] >= 0).sum()) for d in dets]
+        log(f"[e2e {family}] kernel path: " + "; ".join(
+            f"{label}: {ms:.3f} ms" for (label, _, _), ms in zip(reqs, times))
+            + f"; detections {n_dets}; launches {launches}; on {card}")
+        for d in dets:
+            if not np.isfinite(d).all() or d.shape != (int(cfg.TEST.max_per_image), 6):
+                fail(f"{family}: bad detections: shape {d.shape}")
+        if min(n_dets) == 0:
+            fail(f"{family}: a request returned no detections")
+        wrong = []
+        for (label, _, _), got in zip(reqs, counts):
+            expected = want.get(label, {})
+            if any(got[k] != n for k, n in expected.items()):
+                wrong.append(f"{label}: {({k: got[k] for k in expected})} "
+                             f"for {expected}")
+        if wrong:
+            fail(f"{family}: requests off their learned-NMS branch: {wrong}")
+        must = ["nms_keep_sorted"] + ([] if tiny else ["stem_conv1_bn_relu"])
+        must += [] if family == "fpn" else ["geom_bias"]
+        zero = [k for k in must if launches[k] <= 0]
+        if zero:
+            fail(f"{family}: kernels never launched: {zero}")
+        # the proposals' NMS, and the greedy per-class tail's of fpn_relation
+        per_request = 2 if family == "fpn_relation" else 1
+        if launches["nms_keep_sorted"] < per_request * len(reqs):
+            fail(f"{family}: nms_keep_sorted launched "
+                 f"{launches['nms_keep_sorted']} times for {len(reqs)} requests")
+
+        with plain_kernels():
+            zero_counters()
+            plain_dets, plain_times, _ = serve(torch, reqs, im_info)
+            stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
+        if stray:
+            fail(f"{family}: plain run launched kernels: {stray}")
+        errs = []
+        for (label, _, _), ref, new in zip(reqs, plain_dets, dets):
+            errs += [f"{label}: {e}" for e in match_dets(ref, new)]
+        log(f"[e2e {family}] plain path: " + "; ".join(
+            f"{ms:.3f}" for ms in plain_times) + f" ms; kernel vs plain "
+            f"top-{TOP_K} (IoU>={IOU_MIN}, |ds|<={SCORE_ATOL}): "
+            f"{'OK' if not errs else f'{len(errs)} mismatches'}")
+        if errs:
+            for e in errs[:20]:
+                log(f"  {e}")
+            fail(f"{family}: kernel path outside the bands of the plain path")
+        for k, v in launches.items():
+            total[k] += v
+        ms_image[family] = times[0]
+        del model, predict, reqs
+        torch.cuda.empty_cache()
+    return total, ms_image
+
+
+# --------------------------------------------------------------------------
 # phases 5 and 7: the train step
 # --------------------------------------------------------------------------
 
@@ -1302,10 +1604,12 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
         fail(f"trainable leaves that did not move: {still[:5]} ({len(still)}); "
              f"frozen leaves that moved: {strayed[:5]} ({len(strayed)})")
     # two relation modules and the learned-NMS bias a dense step, the two
-    # relation modules a fused one; the tiny trunk has neither the conv1
-    # stem nor a deformable res5 (three deformable convs a step)
+    # relation modules a fused one; the bias attention once an image of a
+    # dense step; the tiny trunk has neither the conv1 stem nor a deformable
+    # res5 (three deformable convs a step)
     want = {"geom_bias_bwd": dense_steps * B * 3 + fused_steps * B * 2,
             "fused_nms_relation_attention": fused_steps * B,
+            "fused_bias_attention": dense_steps * B,
             "stem_conv1_bn_relu": 0 if tiny else steps,
             "nms_keep_sorted": steps * B,
             "geom_bias": dense_steps * B * 3 + fused_steps * B * 2,
@@ -1354,7 +1658,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk"],
+    ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk", "fpn"],
                     default="all")
     args = ap.parse_args()
     try:
@@ -1417,14 +1721,29 @@ def main() -> None:
         "fused_proj_bottleneck": (csrc + "bottleneck.cu",
                                   pallas + "bottleneck_proj.py:86", check_proj,
                                   np.random.RandomState(6)),
+        "fused_geometric_bias_skip": (csrc + "geom_bias.cu",
+                                      pallas + "geom_bias.py:311",
+                                      check_geom_bias_skip,
+                                      np.random.RandomState(7)),
+        "fused_bias_attention": (csrc + "bias_attention.cu",
+                                 pallas + "nms_attention.py:239",
+                                 check_bias_attention, np.random.RandomState(8)),
+        "fused_bias_attention_skip": (csrc + "bias_attention.cu",
+                                      pallas + "nms_attention.py:269",
+                                      check_bias_attention_skip,
+                                      np.random.RandomState(9)),
     }
     if args.phase == "dcn":
         checks = {"dconv_col2im": checks["dconv_col2im"]}
     if args.phase == "trunk":
         checks = {k: checks[k] for k in ("fused_bottleneck_stack",
                                          "fused_proj_bottleneck")}
+    if args.phase == "fpn":
+        checks = {k: checks[k] for k in (
+            "fused_nms_relation_attention_skip", "fused_geometric_bias_skip",
+            "fused_bias_attention", "fused_bias_attention_skip")}
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
-    if args.phase != "trunk":
+    if args.phase in ("all", "kernels", "dcn"):
         check_nms_classic(torch, dev, np.random.RandomState(4))
     if args.phase == "kernels":
         log("[done] kernel phase only: no device line")
@@ -1437,6 +1756,16 @@ def main() -> None:
     def add(counts):
         for k, v in counts.items():
             launches[k] += v
+
+    def fpn_phase():
+        fpn_launches, fpn_ms = run_fpn(torch, dev, card)
+        add(fpn_launches)
+        log("[e2e] FPN ms/image of the default request: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in fpn_ms.items()) + f" on {card}")
+    if args.phase == "fpn":
+        fpn_phase()
+        log(f"[done] FPN phase only: launches {launches}; no device line")
+        return
     if args.phase == "all":
         flagship_launches, ms_image = run_flagship(torch, dev)
         add(flagship_launches)
@@ -1462,6 +1791,8 @@ def main() -> None:
     if args.phase == "dcn":
         log(f"[done] DCN phases only: launches {launches}; no device line")
         return
+    torch.cuda.empty_cache()
+    fpn_phase()
     never = [k for k, v in launches.items() if v <= 0]
     if never:
         fail(f"kernels never launched on any driven path: {never}")

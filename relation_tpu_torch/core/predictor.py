@@ -1,10 +1,13 @@
 """Single-image inference with on-device post-processing (port of
-relation_tpu/core/predictor.py::make_predict_fn: the C4 branch with the
-learned-NMS tail or the classic tail, greedy per-class NMS or soft-NMS).
+relation_tpu/core/predictor.py::make_predict_fn, C4 and FPN, with the
+learned-NMS tail or the classic tail, greedy per-class NMS or soft-NMS;
+make_predict_fn_split of the FPN learned-NMS family, which also serves its
+three-program form; and core/evaluator.py::_build_predict_fn, which picks
+among them).
 
 Detections come back as a fixed-size [max_det, 6] tensor (cls_id, score,
 x1, y1, x2, y2 in original-image coordinates) with -1 class padding.
-The FPN / split / sharded / rcnn variants come in later slices of the port.
+The sharded and rcnn variants come in later slices of the port.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import torch
 
 from relation_tpu_torch.models.backbone import fold_res4_params
 from relation_tpu_torch.models.detector import RelationRCNN
+from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
+                                           generate_proposals_fpn)
 from relation_tpu_torch.models.learn_nms import merge_multi_score
 from relation_tpu_torch.models.rpn import generate_proposals
 from relation_tpu_torch.ops.anchors import generate_anchors
@@ -88,10 +93,14 @@ def prepare_res4_folded(model: RelationRCNN, enabled: bool = False):
     return cached[1]
 
 
-def make_predict_fn(model: RelationRCNN, cfg):
+def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
+                    tail_allow_pallas: bool | None = None):
     """Build the single-image inference function of a C4 model (plain,
-    relation, DCN; learned-NMS tail when TEST.LEARN_NMS, else the classic
-    tail: per-class greedy NMS, or soft-NMS when TEST.SOFTNMS).
+    relation, DCN) or an FPN model; learned-NMS tail when TEST.LEARN_NMS,
+    else the classic tail: per-class greedy NMS, or soft-NMS when
+    TEST.SOFTNMS. ``tail_allow_pallas`` (FPN only: the split form's
+    tail) overrides the learned-NMS attention's branch
+    (NMSRelationModule.allow_pallas) for this function's requests.
 
     Returns predict(image, im_info, res4_folded=None) -> dict with 'dets'
     [max_per_image, 6]
@@ -101,13 +110,30 @@ def make_predict_fn(model: RelationRCNN, cfg):
     s2d planar [12, H/2, W/2] or NHWC [H, W, 3] (f32, or uint8 before mean
     subtraction); im_info [3] = (h, w, scale). Inputs may live on the host:
     they are moved to the model's device. ``res4_folded``
-    (``prepare_res4_folded``) runs res4b1..b22 as the fused stack kernel."""
+    (``prepare_res4_folded``) runs res4b1..b22 as the fused stack kernel.
+
+    An FPN model decodes the RPN of the five pyramid levels, merges them
+    (``generate_proposals_fpn``; TPU.FPN_TOPK is accepted and the top-k is
+    always exact) and pools each ROI at its dispatch level; 'feat' is then
+    the {stride: [h, w, 256]} pyramid and 'rpn_cls' / 'rpn_bbox' are
+    {stride: raw conv layout} dicts."""
     stride = int(cfg.network.RPN_FEAT_STRIDE)
     device = next(model.parameters()).device
-    base_anchors = torch.as_tensor(
-        generate_anchors(stride, tuple(cfg.network.ANCHOR_RATIOS),
-                         tuple(cfg.network.ANCHOR_SCALES)),
-        dtype=torch.float32, device=device)
+    is_fpn = isinstance(model, RelationRCNNFPN)
+    if tail_allow_pallas is not None and not is_fpn:
+        raise ValueError("tail_allow_pallas applies to an FPN model only")
+    tail_kw = {} if tail_allow_pallas is None else {
+        "allow_pallas": tail_allow_pallas}
+    ratios = tuple(cfg.network.ANCHOR_RATIOS)
+    scales = tuple(cfg.network.ANCHOR_SCALES)
+    if is_fpn:
+        # base anchors of each level: base size = the level's stride
+        base_anchors = {s: torch.as_tensor(generate_anchors(s, ratios, scales),
+                                           dtype=torch.float32, device=device)
+                        for s in FPN_STRIDES}
+    else:
+        base_anchors = torch.as_tensor(generate_anchors(stride, ratios, scales),
+                                       dtype=torch.float32, device=device)
     nongt_dim = int(cfg.TEST.RPN_POST_NMS_TOP_N)
     max_det = int(cfg.TEST.max_per_image)
     merge_method = int(cfg.TEST.MERGE_METHOD)
@@ -167,7 +193,7 @@ def make_predict_fn(model: RelationRCNN, cfg):
     def learned_tail(cls_score, bbox_deltas, rois, fc2, im_info):
         """learned-NMS head -> merged scores -> top max_det."""
         ln = model.learn_nms(cls_score, bbox_deltas, rois, fc2, im_info,
-                             class_thresh)
+                             class_thresh, **tail_kw)
         final = merge_multi_score(ln["nms_multi_score"], merge_method)  # [F, C]
         boxes = ln["sorted_bbox"] / im_info[2]
         F_, C = final.shape
@@ -189,11 +215,19 @@ def make_predict_fn(model: RelationRCNN, cfg):
         image = torch.as_tensor(image, device=device)
         im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
         image = _image_from_u8(image, im_info, pixel_means)
-        feat, rpn_cls, rpn_bbox = model.features_and_rpn(image, res4_folded)
-        fg_prob = torch.softmax(rpn_cls, dim=-1)[..., 1]
-        rois, roi_scores, roi_real = generate_proposals(
-            fg_prob, rpn_bbox, base_anchors, im_info, stride, pre_n, post_n,
-            rpn_thresh, min_size)
+        if is_fpn:
+            feat, rpn_out = model.features_and_rpn(image)
+            rpn_cls = {s: c for s, (c, _) in rpn_out.items()}
+            rpn_bbox = {s: b for s, (_, b) in rpn_out.items()}
+            rois, roi_scores, roi_real = generate_proposals_fpn(
+                rpn_out, base_anchors, im_info, pre_n, post_n, rpn_thresh,
+                min_size)
+        else:
+            feat, rpn_cls, rpn_bbox = model.features_and_rpn(image, res4_folded)
+            fg_prob = torch.softmax(rpn_cls, dim=-1)[..., 1]
+            rois, roi_scores, roi_real = generate_proposals(
+                fg_prob, rpn_bbox, base_anchors, im_info, stride, pre_n,
+                post_n, rpn_thresh, min_size)
         cls_score, bbox_deltas, fc2 = model.head(feat, rois, nongt_dim)
         out = {"rois": rois, "roi_scores": roi_scores, "roi_real": roi_real,
                "feat": feat, "rpn_cls": rpn_cls, "rpn_bbox": rpn_bbox,
@@ -203,3 +237,34 @@ def make_predict_fn(model: RelationRCNN, cfg):
 
     predict.tail = tail         # the stage after the head, for the profiler
     return predict
+
+
+def make_predict_fn_split(model: RelationRCNNFPN, cfg):
+    """FPN learned-NMS inference in the form of the JAX package's
+    TPU.FPN_SPLIT_PREDICT (relation_tpu/core/predictor.py:255-331): trunk,
+    pyramid, proposals and head as in ``make_predict_fn``, then the
+    learned-NMS tail with ``allow_pallas=True`` (the fused skip attention at
+    most C/2 active classes, else geometric bias + bias attention). The
+    JAX package splits the two into XLA programs only to keep its Pallas
+    calls out of the pyramid's compilation; here it is one eager program
+    and the math is the same. Same call signature and result dict as
+    make_predict_fn."""
+    if not (isinstance(model, RelationRCNNFPN) and bool(cfg.TEST.LEARN_NMS)):
+        raise ValueError("FPN_SPLIT_PREDICT applies to the FPN learned-NMS "
+                         "predict path only")
+    return make_predict_fn(model, cfg, tail_allow_pallas=True)
+
+
+def build_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg):
+    """The predict function a user of a config gets (relation_tpu/core/
+    evaluator.py::_build_predict_fn): the split form for the FPN learned-NMS
+    family when TPU.FPN_SPLIT_PREDICT is truthy, the single module otherwise.
+    FPN_SPLIT_PREDICT = 3 is the JAX package's third program
+    (relation_tpu/core/predictor.py:334-425), which adds the Pallas proposal
+    NMS and the Pallas geometric bias of the head's relation modules to the
+    split form; the port runs both as kernels on every path, so 3 is the
+    split form too."""
+    if (cfg.TPU.get("FPN_SPLIT_PREDICT", False)
+            and isinstance(model, RelationRCNNFPN) and bool(cfg.TEST.LEARN_NMS)):
+        return make_predict_fn_split(model, cfg)
+    return make_predict_fn(model, cfg)

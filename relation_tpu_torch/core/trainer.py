@@ -1,6 +1,7 @@
 """Model factory and the train step (port of relation_tpu/core/trainer.py).
 
-``build_model`` is the registry of the C4 symbols, plain and DCN.
+``build_model`` is the registry of the C4 symbols, plain and DCN, and of the
+FPN symbols (inference only so far: ``make_train_step`` raises for them).
 ``create_train_state`` and ``make_train_step`` mirror the JAX entry points:
 one step is backbone (+deformable res5) -> RPN
 -> anchor targets -> proposals -> ROI targets -> head (+relation) -> losses
@@ -29,6 +30,7 @@ import torch
 
 from relation_tpu_torch.models.backbone import Conv2d
 from relation_tpu_torch.models.detector import RelationRCNN
+from relation_tpu_torch.models.fpn import RelationRCNNFPN
 from relation_tpu_torch.models.losses import (accuracy_ignore, learn_nms_losses,
                                               nms_accuracy, rcnn_losses,
                                               rpn_losses)
@@ -69,7 +71,8 @@ def _freeze_through(fixed_prefixes) -> int:
                default=0)
 
 
-def build_model(cfg, tiny: bool = False, device="cuda") -> RelationRCNN:
+def build_model(cfg, tiny: bool = False,
+                device="cuda") -> RelationRCNN | RelationRCNNFPN:
     """Instantiate the detector from a reference-schema config, on ``device``
     (``"meta"`` gives shapes without memory). Parameters are uninitialised:
     load them with ``load_state_dict`` (convert.py). Dtype policy of the JAX
@@ -77,15 +80,13 @@ def build_model(cfg, tiny: bool = False, device="cuda") -> RelationRCNN:
     TPU.COMPUTE_DTYPE (bf16 by default), the head in TPU.HEAD_DTYPE,
     everything in f32 for tiny models.
 
-    Ported so far: the C4 symbols (plain 2FC head or relation head, with or
-    without learned NMS) and their DCN siblings (deformable res5 and
-    deformable PSROI head, pooled in TPU.DCN_POOL_DTYPE). FPN symbols
-    raise."""
+    The C4 symbols (plain 2FC head or relation head, with or without
+    learned NMS), their DCN siblings (deformable res5 and deformable PSROI
+    head, pooled in TPU.DCN_POOL_DTYPE) and the FPN symbols
+    (RelationRCNNFPN; TPU.FPN_ALLOW_PALLAS True or "lnms" gives its
+    learned-NMS head the C4 attention branch, False the two-stage one, and
+    TPU.NMS_COMPACT_CLASSES caps the class skipping of the latter)."""
     sym = cfg.symbol
-    if "fpn" in sym:
-        raise NotImplementedError(
-            f"{sym}: FPN symbols come with the FPN slice of the port "
-            "(ROADMAP Queue 1, item 7)")
     threshes = np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float, sep=",")
     precomputed = bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED)
     conv_dtype = torch.float32 if tiny else _dtype(
@@ -95,27 +96,35 @@ def build_model(cfg, tiny: bool = False, device="cuda") -> RelationRCNN:
     device = torch.device(device)
     if device.type != "meta":
         device = resolve_device(device)
+    common = dict(
+        num_classes=int(cfg.dataset.NUM_CLASSES),
+        num_anchors=int(cfg.network.NUM_ANCHORS),
+        class_agnostic=bool(cfg.CLASS_AGNOSTIC),
+        use_relation=any(t in sym for t in ("rcnn_attention", "dcn_attention",
+                                            "fpn_attention")),
+        use_learn_nms=bool(cfg.TRAIN.LEARN_NMS or cfg.TEST.LEARN_NMS),
+        first_n=int(cfg.TRAIN.FIRST_N),
+        num_thresh=len(threshes),
+        bbox_means=tuple(cfg.TRAIN.BBOX_MEANS) if precomputed else None,
+        bbox_stds=tuple(cfg.TRAIN.BBOX_STDS) if precomputed else None,
+        backbone="tiny" if tiny else "resnet101",
+        head_dim=64 if tiny else 1024,
+        conv_dtype=conv_dtype, head_dtype=head_dtype,
+        freeze_through=_freeze_through(tuple(cfg.network.FIXED_PARAMS)))
     with torch.device(device):
-        model = RelationRCNN(
-            num_classes=int(cfg.dataset.NUM_CLASSES),
-            num_anchors=int(cfg.network.NUM_ANCHORS),
-            class_agnostic=bool(cfg.CLASS_AGNOSTIC),
-            use_relation=any(t in sym for t in ("rcnn_attention",
-                                                "dcn_attention",
-                                                "fpn_attention")),
-            use_learn_nms=bool(cfg.TRAIN.LEARN_NMS or cfg.TEST.LEARN_NMS),
-            first_n=int(cfg.TRAIN.FIRST_N),
-            num_thresh=len(threshes),
-            bbox_means=tuple(cfg.TRAIN.BBOX_MEANS) if precomputed else None,
-            bbox_stds=tuple(cfg.TRAIN.BBOX_STDS) if precomputed else None,
-            backbone="tiny" if tiny else "resnet101",
-            head_dim=64 if tiny else 1024,
-            rcnn_feat_stride=int(cfg.network.RCNN_FEAT_STRIDE),
-            conv_dtype=conv_dtype, head_dtype=head_dtype,
-            freeze_through=_freeze_through(tuple(cfg.network.FIXED_PARAMS)),
-            dcn="dcn" in sym,
-            dcn_pool_dtype=torch.float32 if tiny else _dtype(
-                cfg.TPU.get("DCN_POOL_DTYPE", "bfloat16")))
+        if "fpn" in sym:
+            ap = cfg.TPU.get("FPN_ALLOW_PALLAS", False)
+            model = RelationRCNNFPN(
+                lnms_allow_pallas=(ap is True or ap == "lnms"),
+                compact_classes=int(cfg.TPU.get("NMS_COMPACT_CLASSES", 32)),
+                **common)
+        else:
+            model = RelationRCNN(
+                rcnn_feat_stride=int(cfg.network.RCNN_FEAT_STRIDE),
+                dcn="dcn" in sym,
+                dcn_pool_dtype=torch.float32 if tiny else _dtype(
+                    cfg.TPU.get("DCN_POOL_DTYPE", "bfloat16")),
+                **common)
     if str(cfg.TPU.get("ROI_METHOD", "align")) != "align":
         raise NotImplementedError("TPU.ROI_METHOD='pool' (exact ROIPooling) "
                                   "is not ported yet")
@@ -270,6 +279,10 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
     (metrics, parameters untouched). ``stop_after`` (the JAX package's
     benchmarking cuts) is not ported: anything but "" raises.
     """
+    if isinstance(model, RelationRCNNFPN):
+        raise NotImplementedError(
+            "the FPN train step comes with the next slice of the port "
+            "(ROADMAP Queue 1, item 7); FPN inference is ported")
     if stop_after:
         raise NotImplementedError(
             f"stop_after={stop_after!r}: the benchmarking cuts of the JAX "

@@ -1,9 +1,10 @@
 """Entry point of the port: the counterpart of ``__graft_entry__.py::entry``
-of the JAX package, for the flagship and its DCN siblings.
+of the JAX package, for the flagship, its DCN siblings and the FPN family.
 
     from relation_tpu_torch.entry import entry
     predict, (image, im_info) = entry()                  # flagship, on the card
     predict, (image, im_info) = entry("dcn_relation")    # a DCN family
+    predict, (image, im_info) = entry("fpn_learn_nms")   # an FPN family
     dets = predict(image, im_info)["dets"]               # [100, 6]
 
 The flagship is resnet_v1_101_rcnn_attention_1024_pairwise_position_
@@ -17,6 +18,17 @@ YAMLs (experiments/cfgs/*_rcnn_dcn_end2end*.yaml):
     dcn            plain 2FC head, soft-NMS tail (TEST.NMS 0.6)
     dcn_relation   relation head, greedy per-class NMS tail (TEST.NMS 0.3)
     dcn_learn_nms  relation head, learned-NMS tail
+
+The FPN families are the same three heads and tails on the FPN detector
+(ResNet-101 res2..res5 at strides 4..32, the FPN neck with P2..P6, one RPN
+over the five levels with one scale and three ratios, 3 x 51,840 anchors at
+608x1024, ROIs pooled at their dispatch level), with the settings of
+experiments/cfgs/*_rcnn_fpn*_8epoch.yaml: fpn, fpn_relation and
+fpn_learn_nms (FIRST_N 150, LEARN_NMS_CLASS_SCORE_TH 0.05). The YAMLs test
+from cached proposals (TEST.HAS_RPN False); here, as in the JAX package's
+make_predict_fn, the RPN runs on the device. entry() serves them through
+core/predictor.py::build_predict_fn, so fpn_learn_nms takes the
+TPU.FPN_SPLIT_PREDICT form by default.
 """
 
 from __future__ import annotations
@@ -34,6 +46,11 @@ FAMILIES = {
     "dcn_relation": ("resnet_v1_101_rcnn_dcn_attention_1024_pairwise_position_"
                      "multi_head_16", False, 0.3, False),
     "dcn_learn_nms": ("resnet_v1_101_rcnn_dcn_attention_1024_pairwise_position_"
+                      "multi_head_16_learn_nms", True, 10.0, True),
+    "fpn": ("resnet_v1_101_rcnn_fpn", False, 0.6, True),
+    "fpn_relation": ("resnet_v1_101_rcnn_fpn_attention_1024_pairwise_position_"
+                     "multi_head_16", False, 0.3, False),
+    "fpn_learn_nms": ("resnet_v1_101_rcnn_fpn_attention_1024_pairwise_position_"
                       "multi_head_16_learn_nms", True, 10.0, True),
 }
 BUCKET = (608, 1024)
@@ -69,7 +86,17 @@ def family_cfg(family: str = "flagship", tiny_shapes: bool = False):
     cfg.TEST.HAS_RPN = True
     cfg.TEST.RPN_MIN_SIZE = 0
     cfg.TEST.max_per_image = 100
-    pre, post, first_n = (128, 48, 16) if tiny_shapes else (6000, 300, 100)
+    first_n = 100
+    if family.startswith("fpn"):
+        # one scale a level: 3 anchors per cell on each of P2..P6
+        cfg.network.ANCHOR_SCALES = (8,)
+        cfg.network.NUM_ANCHORS = 3
+        cfg.TRAIN.lr = 0.00125
+        cfg.TRAIN.BATCH_ROIS_OHEM = 512
+        if learn_nms:
+            first_n = 150
+            cfg.TEST.LEARN_NMS_CLASS_SCORE_TH = 0.05
+    pre, post, first_n = (128, 48, 16) if tiny_shapes else (6000, 300, first_n)
     for sec in (cfg.TRAIN, cfg.TEST):
         sec.RPN_PRE_NMS_TOP_N = pre
         sec.RPN_POST_NMS_TOP_N = post
@@ -88,12 +115,14 @@ def entry(family: str = "flagship", device="cuda", seed: int = 0, cfg=None):
     bucket with its im_info, on ``device``. ``cfg`` (default
     ``family_cfg(family)``) is the config the model is built from.
 
-    With cfg.TPU.FUSE_RES4 set, predict runs res4b1..b22 as the fused stack
-    kernel on weights folded once and kept with the model
+    The predict function is core/predictor.py::build_predict_fn's: for
+    fpn_learn_nms with TPU.FPN_SPLIT_PREDICT (on by default) the split form.
+    With cfg.TPU.FUSE_RES4 set, a C4 model's predict runs res4b1..b22 as the
+    fused stack kernel on weights folded once and kept with the model
     (core/predictor.py::prepare_res4_folded), as __graft_entry__.py::entry
     does. ``predict.model`` is the model it serves."""
     from relation_tpu_torch.convert import init_params
-    from relation_tpu_torch.core.predictor import (make_predict_fn,
+    from relation_tpu_torch.core.predictor import (build_predict_fn,
                                                    prepare_res4_folded)
     from relation_tpu_torch.core.trainer import build_model
 
@@ -103,7 +132,7 @@ def entry(family: str = "flagship", device="cuda", seed: int = 0, cfg=None):
     dev = next(model.parameters()).device
     image = torch.zeros((12, H // 2, W // 2), dtype=torch.float32, device=dev)
     im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
-    predict_fn = make_predict_fn(model, cfg)
+    predict_fn = build_predict_fn(model, cfg)
     fuse = bool(cfg.TPU.get("FUSE_RES4", False))
     prepare_res4_folded(model, fuse)
 

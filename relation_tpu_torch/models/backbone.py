@@ -180,12 +180,18 @@ class ResNet101C4(nn.Module):
     - otherwise, and for a batch of more than one image, the conv path.
 
     The kernels run on [H, W, C] maps: the trunk changes layout once on the
-    way in and once on the way out."""
+    way in and once on the way out.
+
+    ``out_stages`` other than (4,) (the FPN trunk: (2, 3, 4)) returns
+    {stage: NCHW map} of res2c, res3b3 and res4b22 instead of the res4b22
+    map alone."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 freeze_through: int = 0, fuse_res4: bool | None = None):
+                 freeze_through: int = 0, fuse_res4: bool | None = None,
+                 out_stages=(4,)):
         super().__init__()
         self.dtype = dtype
+        self.out_stages = tuple(out_stages)
         # no gradient below the end of this stage (0 = none; 2, 3 or 4): the
         # stem and the stages up to it run under no_grad, the counterpart of
         # the JAX package's stop_gradient boundary. The parameters there are
@@ -241,6 +247,7 @@ class ResNet101C4(nn.Module):
             # the stride-2 decimation of res3a and res4a needs even dims at
             # both stages; the conv path's ceil-mode sizes differ for odd ones
             trunk_folded = None
+        outs = {}
         if trunk_folded is not None and x.shape[0] == 1:
             y = x[0].permute(1, 2, 0).to(self.dtype).contiguous()
             for stage, (_, _, _, stride) in _PLAN.items():
@@ -248,7 +255,10 @@ class ResNet101C4(nn.Module):
                 y = fused_proj_bottleneck(y, *f["proj"], stride=stride)
                 if f["stack"] is not None:
                     y = fused_bottleneck_stack(y, *f["stack"])
-            return y.permute(2, 0, 1)[None].contiguous()
+                outs[stage] = y
+            outs = {s: y.permute(2, 0, 1)[None].contiguous()
+                    for s, y in outs.items() if s in self.out_stages}
+            return self._outputs(outs)
         for stage in _PLAN:
             units = self.units(stage)
             fuse = (stage == 4 and x.shape[0] == 1
@@ -265,7 +275,13 @@ class ResNet101C4(nn.Module):
                 else:
                     for unit in units:
                         x = unit(x)
-        return x
+            outs[stage] = x
+        return self._outputs(outs)
+
+    def _outputs(self, outs):
+        if self.out_stages == (4,):
+            return outs[4]
+        return {s: outs[s] for s in self.out_stages}
 
 
 def _bn_fold(bn: FrozenBatchNorm, eps: float):

@@ -25,14 +25,15 @@ from relation_tpu_torch.ops.embeddings import (extract_multi_position_matrix_t,
 
 class LearnNMSHead(nn.Module):
     """forward(cls_score [N, K], bbox_pred [N, 4*num_reg], rois [N, 4],
-    roi_feat [N, D], im_info [3], class_thresh) -> dict with
+    roi_feat [N, D], im_info [3], class_thresh, allow_pallas) -> dict with
     nms_multi_score [F, C, T], sorted_bbox [F, C, 4], sorted_score [F, C],
     nms_conditional_score [F, C, T] (F = first_n, C = fg classes)."""
 
     def __init__(self, num_fg_classes: int, first_n: int, num_thresh: int,
                  roi_feat_dim: int, class_agnostic: bool = True,
                  bbox_means=None, bbox_stds=None,
-                 attn_dtype: torch.dtype = torch.float32):
+                 attn_dtype: torch.dtype = torch.float32,
+                 allow_pallas: bool = True, compact_classes: int = 32):
         super().__init__()
         self.num_fg_classes, self.first_n = num_fg_classes, first_n
         self.class_agnostic = class_agnostic
@@ -41,11 +42,14 @@ class LearnNMSHead(nn.Module):
         self.roi_feat_embedding = Dense(roi_feat_dim, 128)
         self.NMSRelationModule_0 = NMSRelationModule(
             index=1, feat_dim=128, dim_qk=1024, dim_out=128, groups=16,
-            dtype=attn_dtype)
+            dtype=attn_dtype, allow_pallas=allow_pallas,
+            compact_classes=compact_classes)
         self.nms_logit = Dense(128, num_thresh)
 
     def forward(self, cls_score, bbox_pred, rois, roi_feat, im_info,
-                class_thresh: float = 0.0):
+                class_thresh: float = 0.0, allow_pallas: bool | None = None):
+        """``allow_pallas`` overrides the attention's branch for this call
+        (NMSRelationModule)."""
         C, F_ = self.num_fg_classes, self.first_n
         refined = refine_bbox(rois, bbox_pred.detach()[:, 4:],
                               im_hw=(im_info[0], im_info[1]),
@@ -75,7 +79,8 @@ class LearnNMSHead(nn.Module):
             active = max_per_class >= thr
 
         attention = self.NMSRelationModule_0(
-            emb, pos_t, None if active is None else active.to(torch.int32))
+            emb, pos_t, None if active is None else active.to(torch.int32),
+            allow_pallas)
         feat = torch.relu(emb + attention)
         conditional = torch.sigmoid(self.nms_logit(feat))         # [F, C, T]
         if active is not None:

@@ -3,12 +3,17 @@ a log-clamped geometric bias (port of relation_tpu/models/relation.py;
 reference attention_module_multi_head / attention_module_nms_multi_head).
 
 The geometric bias runs through ops/kernels/geom_bias.py (forward and
-backward), the learned-NMS attention of a request with at most C/2 active
-classes through the skip kernel of ops/kernels/nms_attention.py, and with
-``fully_fused`` the unfiltered (training) call through its differentiable
-form over every class. Parameter names and layouts follow the flax
-tree: pair_pos_fc1 and the query/key denses are ``nn.Linear``s ([out, in]),
-linear_out is a raw [groups, feat, out/groups] weight.
+backward). The learned-NMS attention over every class runs in two stages:
+the geometric-bias kernel, then the bias-attention kernel of
+ops/kernels/bias_attention.py. A request with at most C/2 active classes
+takes the fused skip kernel of ops/kernels/nms_attention.py, and with
+``fully_fused`` the unfiltered (training) call takes its differentiable form
+over every class. With ``allow_pallas=False`` (the JAX package's XLA branch,
+the FPN default) a request with few active classes runs the two stages over
+the active classes only.
+Parameter names and layouts follow the flax tree: pair_pos_fc1 and the
+query/key denses are ``nn.Linear``s ([out, in]), linear_out is a raw
+[groups, feat, out/groups] weight.
 """
 
 from __future__ import annotations
@@ -17,7 +22,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from relation_tpu_torch.ops.kernels.geom_bias import fused_geometric_bias
+from relation_tpu_torch.ops.kernels.bias_attention import (
+    fused_bias_attention, fused_bias_attention_skip)
+from relation_tpu_torch.ops.kernels.geom_bias import (fused_geometric_bias,
+                                                      fused_geometric_bias_skip)
 from relation_tpu_torch.ops.kernels.nms_attention import (
     fused_nms_relation_attention, fused_nms_relation_attention_skip)
 
@@ -88,22 +96,36 @@ class NMSRelationModule(nn.Module):
     roi_feat [N, C, F], position_mat_t [C, 4, N, N], optional active [C]
     -> [N, C, dim_out].
 
-    With ``active`` (inference) and at most C/2 active classes (a host-side
-    decision on one scalar) the fused skip kernel runs and leaves inactive
-    classes unwritten; otherwise the dense path runs: fused geometric bias,
-    then batched attention. Without ``active`` (training computes every
-    class) ``fully_fused`` (a field, off by default as in the JAX package;
-    set it on the built module) picks the single fused kernel over all
-    classes, in f32, in place of the dense path; both carry gradients. The XLA
-    compact path is not ported."""
+    Every branch runs in f32, whatever ``dtype`` the query and key denses
+    take. The dense path over every class is two kernels: the geometric
+    bias, then the bias attention; both carry gradients.
+
+    ``allow_pallas`` (True, the C4 default) picks the JAX package's Pallas
+    branch. With ``active`` (inference) and at most C/2 active classes (a
+    host-side decision on one scalar) the fused skip kernel runs and leaves
+    inactive classes unwritten; otherwise the dense path runs. Without
+    ``active`` (training computes every class) ``fully_fused`` (a field, off
+    by default as in the JAX package; set it on the built module) picks the
+    single fused kernel over all classes in place of the dense path; it also
+    carries gradients.
+
+    ``allow_pallas=False`` (the FPN default) is the JAX package's XLA branch
+    (relation.py:171-201): the materialised [C, G, N, N] geometric bias, then
+    the attention, which is the dense path. With ``active`` and at most
+    ``compact_classes`` (< C) active classes, the skip forms of both kernels
+    run over the active classes only (the JAX compact path gathers them into
+    a batch of ``compact_classes``; the rows of active classes are the same,
+    and the others are masked by the learned-NMS head's where())."""
 
     def __init__(self, index: int, feat_dim: int, dim_qk: int = 1024,
                  dim_out: int = 128, groups: int = 16,
                  dtype: torch.dtype = torch.float32,
-                 fully_fused: bool = False):
+                 fully_fused: bool = False, allow_pallas: bool = True,
+                 compact_classes: int = 32):
         super().__init__()
         self.index, self.groups = index, groups
         self.fully_fused = fully_fused
+        self.allow_pallas, self.compact_classes = allow_pallas, compact_classes
         self.dim_qk, self.dim_out = dim_qk, dim_out
         setattr(self, f"nms_query_{index}", Dense(feat_dim, dim_qk, dtype))
         setattr(self, f"nms_key_{index}", Dense(feat_dim, dim_qk, dtype))
@@ -113,7 +135,9 @@ class NMSRelationModule(nn.Module):
         setattr(self, f"nms_linear_out_{index}_bias", nn.Parameter(
             torch.zeros(dim_out)))
 
-    def forward(self, roi_feat, position_mat_t, active=None):
+    def forward(self, roi_feat, position_mat_t, active=None,
+                allow_pallas: bool | None = None):
+        """``allow_pallas`` overrides the field for this call."""
         i = self.index
         n, c, _ = roi_feat.shape
         g = self.groups
@@ -123,7 +147,15 @@ class NMSRelationModule(nn.Module):
         pp = getattr(self, f"nms_pair_pos_fc1_{i}")
         wg, bg = pp.weight.t(), pp.bias
         wl = getattr(self, f"nms_linear_out_{i}_weight")
-        if active is not None and int(active.sum()) <= c // 2:
+        if not (self.allow_pallas if allow_pallas is None else allow_pallas):
+            m = self.compact_classes
+            if active is not None and 0 < m < c and int(active.sum()) <= m:
+                bias = fused_geometric_bias_skip(position_mat_t, wg, bg, active)
+                y = fused_bias_attention_skip(bias, q.float(), k.float(),
+                                              feat.float(), wl, active)
+            else:
+                y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl)
+        elif active is not None and int(active.sum()) <= c // 2:
             y = fused_nms_relation_attention_skip(
                 position_mat_t, q.float(), k.float(), feat.float(), wg, bg,
                 wl, active)
@@ -131,20 +163,13 @@ class NMSRelationModule(nn.Module):
             y = fused_nms_relation_attention(
                 position_mat_t, q.float(), k.float(), feat.float(), wg, bg, wl)
         else:
-            y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl, g)
+            y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl)
         y = y + getattr(self, f"nms_linear_out_{i}_bias")
         return y.transpose(0, 1)                                # [N, C, out]
 
 
-def _dense_attention(position_mat_t, q, k, feat, wg, bg, wl, g):
-    """Fused geometric bias + batched attention over every class."""
-    c, n, _ = q.shape
-    d = q.shape[-1] // g
-    dt = q.dtype
+def _dense_attention(position_mat_t, q, k, feat, wg, bg, wl):
+    """Every class in two stages, in f32: the geometric-bias kernel, then the
+    bias-attention kernel; both carry gradients."""
     bias = fused_geometric_bias(position_mat_t, wg, bg)        # [C, g, N, N]
-    aff = torch.einsum("cigd,cjgd->cgij", q.reshape(c, n, g, d),
-                       k.reshape(c, n, g, d)) / (float(d) ** 0.5)
-    attn = torch.softmax(aff.float() + bias, dim=-1)
-    av = torch.einsum("cgij,cjf->cgif", attn.to(dt), feat.to(dt))
-    return torch.einsum("cgif,gfe->cige", av,
-                        wl.to(dt)).reshape(c, n, -1).float()
+    return fused_bias_attention(bias, q.float(), k.float(), feat.float(), wl)

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("geom_bias", "geom_bias_bwd", "nms_kernel", "stem", "nms_attention",
-           "dconv_col2im", "bottleneck")
+           "dconv_col2im", "bottleneck", "bias_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

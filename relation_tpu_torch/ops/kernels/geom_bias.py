@@ -5,10 +5,11 @@ plain versions.
 
 with the reference's sinusoid embedding (4 fields x 8 frequencies x {sin, cos},
 feature layout j*16 + (sin 0-7 | cos 8-15)) and W/b the pair_pos_fc1 dense.
-Port of relation_tpu/ops/pallas/geom_bias.py::fused_geometric_bias and its
-VJP ``_geom_bias_bwd_impl``; the kernels are csrc/geom_bias.cu and
-csrc/geom_bias_bwd.cu. The op saves only its inputs: the backward recomputes
-the sin/cos.
+Port of relation_tpu/ops/pallas/geom_bias.py::fused_geometric_bias, its
+VJP ``_geom_bias_bwd_impl`` and ``fused_geometric_bias_skip`` (the forward
+over the active classes only, inference); the kernels are csrc/geom_bias.cu
+and csrc/geom_bias_bwd.cu. The op saves only its inputs: the backward
+recomputes the sin/cos.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from relation_tpu_torch.ops.kernels import _build
 
 launches = 0          # launches of the forward kernel (CUDA only)
 bwd_launches = 0      # launches of the backward kernel (CUDA only)
+skip_launches = 0     # launches of the class-skipping forward (CUDA only)
 _SUPPORTED_G = (4, 8, 16, 32)
 _BWD_TILE = 128       # pairs per tile of csrc/geom_bias_bwd.cu (kT)
 _BWD_BLOCKS_PER_SM = 4
@@ -56,6 +58,20 @@ def geom_bias_reference(pos_t: torch.Tensor, kernel: torch.Tensor,
     (relation_tpu geom_bias_reference with f32 embedding)."""
     return torch.log(torch.clamp_min(
         geom_acc_reference(pos_t, kernel, bias, scale), 1e-6))
+
+
+def geom_bias_skip_reference(pos_t: torch.Tensor, kernel: torch.Tensor,
+                             bias: torch.Tensor, active: torch.Tensor,
+                             scale: float = 100.0) -> torch.Tensor:
+    """Plain version of the class-skipping forward: the rows of the classes
+    with ``active`` [C] != 0 as ``geom_bias_reference`` computes them, zeros
+    elsewhere."""
+    C, _, N, M = pos_t.shape
+    idx = torch.nonzero(active != 0).flatten()
+    out = torch.zeros((C, kernel.shape[1], N, M), dtype=torch.float32,
+                      device=pos_t.device)
+    out[idx] = geom_bias_reference(pos_t[idx], kernel, bias, scale)
+    return out
 
 
 def geom_bias_bwd_reference(pos_t: torch.Tensor, kernel: torch.Tensor,
@@ -97,21 +113,31 @@ def _check(name, pos_t, kernel, bias, *more):
     return C, G, N, M
 
 
-def _launch(pos_t, kernel, bias, scale, raw: bool = False):
+def _launch(pos_t, kernel, bias, scale, raw: bool = False, active=None):
     """The forward kernel; ``raw`` gives acc + b before the clamp and the log
-    (the card tests compare the backward's clamp decisions with it)."""
-    C, G, N, M = _check("geom_bias", pos_t, kernel, bias)
+    (the card tests compare the backward's clamp decisions with it);
+    ``active`` [C] computes those classes only and leaves the other rows
+    unwritten."""
+    name = "geom_bias_skip" if active is not None else "geom_bias"
+    C, G, N, M = _check(name, pos_t, kernel, bias)
     out = torch.empty((C, G, N, M), dtype=torch.float32, device=pos_t.device)
     lib = _build.load("geom_bias")
-    fn = lib.geom_bias_acc if raw else lib.geom_bias_fwd
+    ptrs = [_build.ptr(pos_t), _build.ptr(kernel), _build.ptr(bias)]
+    if active is not None:
+        if active.shape != (C,):
+            raise ValueError(f"{name}: active {tuple(active.shape)} for C={C}")
+        act = active.to(torch.int32).contiguous()
+        _build.check_inputs(name, pos_t, act)
+        fn, ptrs = lib.geom_bias_fwd_skip, ptrs + [_build.ptr(act)]
+    else:
+        fn = lib.geom_bias_acc if raw else lib.geom_bias_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_long, ctypes.c_float,
-                                           ctypes.c_void_p]
-    rc = fn(_build.ptr(pos_t), _build.ptr(kernel), _build.ptr(bias),
-            _build.ptr(out), C, G, N * M, float(scale),
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 1) + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_float,
+        ctypes.c_void_p]
+    rc = fn(*ptrs, _build.ptr(out), C, G, N * M, float(scale),
             _build.stream_ptr(pos_t.device))
-    _build.check(rc, "geom_bias_fwd")
+    _build.check(rc, name)
     return out
 
 
@@ -187,3 +213,22 @@ def fused_geometric_bias(pos_t: torch.Tensor, kernel: torch.Tensor,
     if pos_t.device.type != "cuda":
         return geom_bias_reference(pos_t, kernel, bias, scale)
     return _GeomBias.apply(pos_t, kernel, bias, float(scale))
+
+
+def fused_geometric_bias_skip(pos_t: torch.Tensor, kernel: torch.Tensor,
+                              bias: torch.Tensor, active: torch.Tensor,
+                              scale: float = 100.0) -> torch.Tensor:
+    """``fused_geometric_bias`` for the classes with ``active`` [C] != 0
+    only (the learned-NMS head's inference class filter). On the card the
+    other classes' rows are left unwritten, as on the TPU, and an active
+    class's rows are bit-equal to the unskipped kernel's; CPU tensors take
+    the plain version (zeros there). Inference only: on the card an input
+    that requires a gradient is refused, never answered detached."""
+    global skip_launches
+    if pos_t.device.type != "cuda":
+        return geom_bias_skip_reference(pos_t, kernel, bias, active, scale)
+    _build.refuse_grad("fused_geometric_bias_skip", pos_t, kernel, bias)
+    out = _launch(pos_t.contiguous(), kernel.contiguous(), bias.contiguous(),
+                  scale, active=active)
+    skip_launches += 1
+    return out

@@ -20,6 +20,34 @@ from relation_tpu_torch.ops.kernels.geom_bias import geom_bias_reference
 
 launches = 0          # kernel launches of the skip attention (CUDA only)
 full_launches = 0     # kernel launches of the unskipped attention (CUDA only)
+MAX_SMEM = 232_448    # shared memory a Hopper block may use, bytes
+_WHOLE_N = 128        # up to this N a block takes every query row, above
+_ROW_TILE = 64        # at most this many (csrc/attention_rows.cuh)
+
+
+def smem_bytes(N: int, D: int, E: int, extra_floats: int = 0) -> int:
+    """Shared memory of one block of the attention kernels
+    (csrc/attention_rows.cuh: q^T of a tile of query rows, k^T, the
+    [rows, N] score tile, u_g = v @ Wl_g, the row sums), plus
+    ``extra_floats``."""
+    def pad4(x):
+        return (x + 3) // 4 * 4
+    tiles = 1 if N <= _WHOLE_N else -(-N // _ROW_TILE)
+    tr, np_ = pad4(-(-N // tiles)), pad4(N)
+    return 4 * (D * tr + D * np_ + tr * np_ + E * np_ + tr + extra_floats)
+
+
+def check_attention_shape(name: str, N: int, D: int, F: int, E: int,
+                          extra_floats: int = 0) -> None:
+    """Raise ValueError, before any launch, for a shape the attention
+    kernels do not take."""
+    if D % 4 or F % 4:
+        raise ValueError(f"{name}: needs D and F multiples of 4 "
+                         f"(got D={D}, F={F})")
+    need = smem_bytes(N, D, E, extra_floats)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: N={N} needs {need} bytes of shared memory "
+                         f"a block, over the {MAX_SMEM} a Hopper block has")
 
 
 def nms_relation_attention_reference(pos_t, q, k, v, wg, bg, wl, active=None,
@@ -58,9 +86,8 @@ def _launch(pos_t, q, k, v, wg, bg, wl, active, scale, name):
             or wl.shape != (G, F, E)
             or (active is not None and active.shape != (C,))):
         raise ValueError(f"{name}: inconsistent shapes")
-    if D % 4 or F % 4 or F > 2 * D or E > 16:
-        raise ValueError(f"{name}: needs D and F multiples of 4, F <= 2 * D "
-                         f"and E <= 16 (got D={D}, F={F}, E={E})")
+    cs = max(c for c in (8, 4, 2, 1) if G % c == 0)   # heads a cluster
+    check_attention_shape(name, N, D, F, E, extra_floats=64 * cs)
     # q, k and v are read as float4s: 16-byte aligned storage
     tensors = [t.contiguous() for t in (pos_t, q, k, v, wg, bg, wl)]
     tensors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
@@ -68,6 +95,7 @@ def _launch(pos_t, q, k, v, wg, bg, wl, active, scale, name):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expects float32")
     out = torch.empty((C, N, G * E), dtype=torch.float32, device=pos_t.device)
+    u = torch.empty_like(out)               # v @ Wl per head, the workspace
     ptrs = [_build.ptr(t) for t in tensors]
     tail = [C, N, G, D, F, E, float(scale), _build.stream_ptr(pos_t.device)]
     types = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -75,14 +103,14 @@ def _launch(pos_t, q, k, v, wg, bg, wl, active, scale, name):
     if active is None:
         _build.check_inputs(name, *tensors)
         fn = lib.nms_attention_full
-        fn.argtypes = [ctypes.c_void_p] * 8 + types
-        args = ptrs + [_build.ptr(out)] + tail
+        fn.argtypes = [ctypes.c_void_p] * 9 + types
+        args = ptrs + [_build.ptr(out), _build.ptr(u)] + tail
     else:
         act = active.to(torch.int32).contiguous()
         _build.check_inputs(name, *tensors, act)
         fn = lib.nms_attention_skip
-        fn.argtypes = [ctypes.c_void_p] * 9 + types
-        args = ptrs + [_build.ptr(act), _build.ptr(out)] + tail
+        fn.argtypes = [ctypes.c_void_p] * 10 + types
+        args = ptrs + [_build.ptr(act), _build.ptr(out), _build.ptr(u)] + tail
     fn.restype = ctypes.c_int
     _build.check(fn(*args), name)
     return out
@@ -93,10 +121,12 @@ def fused_nms_relation_attention_skip(pos_t, q, k, v, wg, bg, wl, active,
     """Single fused kernel for the active classes (``active`` [C] int32).
     Inactive classes' rows are left unwritten on the card, as on the TPU: the
     learned-NMS head masks them with where(). CUDA tensors launch the kernel
-    (one block of about 150 KB of shared memory per class and head at the
-    flagship shape; a shape that does not fit is refused at launch); CPU
-    tensors take the plain version. Inference only: on the card an input
-    that requires a gradient is refused, never answered detached."""
+    (one block per class, head and tile of query rows, every row up to
+    N=128 and at most 64 above, about 91 KB of shared memory at N=150; a
+    shape that does not fit is refused with a ValueError before the
+    launch); CPU tensors take the plain version. Inference only: on the card
+    an input that requires a gradient is refused, never answered
+    detached."""
     global launches
     if pos_t.device.type != "cuda":
         return nms_relation_attention_reference(pos_t, q, k, v, wg, bg, wl,

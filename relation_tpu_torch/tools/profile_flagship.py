@@ -4,15 +4,19 @@ step) goes, on one CUDA card.
     python3 -m relation_tpu_torch.tools.profile_flagship [--family flagship]
         [--requests 3] [--trace out.json] [--train]
 
-Builds one family of relation_tpu_torch/entry.py::FAMILIES (the flagship, or
-dcn, dcn_relation, dcn_learn_nms; weights from init_params(seed=0), a DCN
-family's offset branches seeded away from zero as chip_smoke.py does) on
-cuda:0, warms up, then:
+Builds one family of relation_tpu_torch/entry.py::FAMILIES (the flagship,
+dcn, dcn_relation, dcn_learn_nms, fpn, fpn_relation or fpn_learn_nms;
+weights from init_params(seed=0), a DCN family's offset branches seeded away
+from zero and an FPN family's prediction layers calibrated, as chip_smoke.py
+does) on cuda:0, serves it through core/predictor.py::build_predict_fn (the
+split form for fpn_learn_nms), warms up, then:
 
 1. stage split: host clock with torch.cuda.synchronize() around each stage
-   (C4 trunk + RPN head, res5 + conv_new_1, proposals, ROI head, tail:
-   learned NMS or classic NMS with the detection cut) of one seeded
-   608x1024 request, median over --requests;
+   of one seeded 608x1024 request, median over --requests: for a C4 family
+   C4 trunk + RPN head, res5 + conv_new_1, proposals, ROI head, tail
+   (learned NMS or classic NMS with the detection cut); for an FPN family
+   trunk + res5 + neck + RPN over five levels, proposals, ROI head (4-level
+   pool, FCs, relations), tail;
 2. torch.profiler over --requests whole requests: device busy time (the
    sum of kernel times, overlaps merged) against the window's wall time,
    so the idle share, and the kernels ranked by device time;
@@ -159,11 +163,13 @@ def main():
         sys.exit("needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-    from chip_smoke import seed_offsets, time_ms
+    from chip_smoke import calibrate_heads, seed_offsets, time_ms
     from relation_tpu_torch.convert import init_params
-    from relation_tpu_torch.core.predictor import make_predict_fn
+    from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import build_model
     from relation_tpu_torch.entry import BUCKET, family_cfg
+    from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
+                                               generate_proposals_fpn)
     from relation_tpu_torch.models.rpn import generate_proposals
     from relation_tpu_torch.ops.anchors import generate_anchors
 
@@ -180,20 +186,29 @@ def main():
     image = torch.tensor(np.random.RandomState(7).randn(12, H // 2, W // 2) * 40.0,
                          dtype=torch.float32, device=dev)
     im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
-    if model.dcn:
+    fpn = isinstance(model, RelationRCNNFPN)
+    predict = build_predict_fn(model, cfg)
+    if fpn:
+        calibrate_heads(torch, model, predict, image, im_info)
+    elif model.dcn:
         seed_offsets(torch, model, cfg, image, im_info)
-    predict = make_predict_fn(model, cfg)
     net, test = cfg.network, cfg.TEST
     stride = int(net.RPN_FEAT_STRIDE)
-    anchors = torch.tensor(generate_anchors(stride, tuple(net.ANCHOR_RATIOS),
-                                            tuple(net.ANCHOR_SCALES)),
+    ratios, scales = tuple(net.ANCHOR_RATIOS), tuple(net.ANCHOR_SCALES)
+    anchors = torch.tensor(generate_anchors(stride, ratios, scales),
                            dtype=torch.float32, device=dev)
+    level_anchors = {s: torch.tensor(generate_anchors(s, ratios, scales),
+                                     dtype=torch.float32, device=dev)
+                     for s in FPN_STRIDES}
+    proposal_args = (int(test.RPN_PRE_NMS_TOP_N), int(test.RPN_POST_NMS_TOP_N),
+                     float(test.RPN_NMS_THRESH), float(test.RPN_MIN_SIZE))
     for _ in range(2):
         predict(image, im_info)
     torch.cuda.synchronize()
 
-    stages = {k: [] for k in ("c4+rpn", "res5", "proposals", "head", "tail",
-                              "total")}
+    names = (("trunk+c5+neck+rpn", "proposals", "head", "tail") if fpn else
+             ("c4+rpn", "res5", "proposals", "head", "tail"))
+    stages = {k: [] for k in names + ("total",)}
     with torch.inference_mode():
         for _ in range(args.requests):
             t = [time.perf_counter()]
@@ -201,17 +216,22 @@ def main():
             def mark():
                 torch.cuda.synchronize()
                 t.append(time.perf_counter())
-            c4 = model.c4(image[None])
-            rpn_cls, rpn_bbox = model.rpn(c4)
-            mark()
-            feat = F.relu(model.conv_new_1(model.c5(c4))).permute(0, 2, 3, 1)[0]
-            mark()
-            rois, _, roi_real = generate_proposals(
-                torch.softmax(rpn_cls[0], -1)[..., 1], rpn_bbox[0], anchors,
-                im_info, stride, int(test.RPN_PRE_NMS_TOP_N),
-                int(test.RPN_POST_NMS_TOP_N), float(test.RPN_NMS_THRESH),
-                float(test.RPN_MIN_SIZE))
-            mark()
+            if fpn:
+                feat, rpn_out = model.features_and_rpn(image)
+                mark()
+                rois, _, roi_real = generate_proposals_fpn(
+                    rpn_out, level_anchors, im_info, *proposal_args)
+                mark()
+            else:
+                c4 = model.c4(image[None])
+                rpn_cls, rpn_bbox = model.rpn(c4)
+                mark()
+                feat = F.relu(model.conv_new_1(model.c5(c4))).permute(0, 2, 3, 1)[0]
+                mark()
+                rois, _, roi_real = generate_proposals(
+                    torch.softmax(rpn_cls[0], -1)[..., 1], rpn_bbox[0], anchors,
+                    im_info, stride, *proposal_args)
+                mark()
             cls_score, bbox_pred, fc2 = model.head(
                 feat, rois, int(test.RPN_POST_NMS_TOP_N))
             mark()
@@ -235,7 +255,7 @@ def main():
     if args.trace:
         prof.export_chrome_trace(args.trace)
     report(torch, prof, wall_us, args.requests, "request")
-    if model.dcn:
+    if not fpn and model.dcn:
         time_deformable_ops(torch, dev, time_ms)
 
 

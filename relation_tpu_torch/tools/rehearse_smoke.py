@@ -12,9 +12,9 @@ then calls ``run_flagship``, ``run_training``, ``run_dcn_inference`` and the
 DCN ``run_training`` with ``tiny=True`` (tiny trunk, 64x128 image; the tiny
 trunk has no res5, so the DCN rehearsal covers the deformable PSROI head, the
 classic NMS tail and the offset seeding, not the deformable conv), then
-``run_fused_flagship`` and ``run_fused_trunk`` (the full-depth trunk, as
-entry() builds it, on a 64x128 image). It prints what the script prints; its
-times are CPU times and mean nothing.
+``run_fused_flagship``, ``run_fused_trunk`` and ``run_fpn`` (the full-depth
+trunk and FPN models, as entry() builds them, on a 64x128 image). It prints
+what the script prints; its times are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -34,9 +34,10 @@ def install_stubs() -> None:
     import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
     import chip_smoke
-    from relation_tpu_torch.ops.kernels import (bottleneck_proj, dconv_col2im,
-                                                geom_bias, nms_attention,
-                                                nms_kernel, res4, stem)
+    from relation_tpu_torch.ops.kernels import (bias_attention, bottleneck_proj,
+                                                dconv_col2im, geom_bias,
+                                                nms_attention, nms_kernel, res4,
+                                                stem)
     torch.cuda.synchronize = lambda *a, **k: None
     chip_smoke.time_ms = lambda torch, fn, **k: (fn(), 0.0)[1]
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
@@ -55,6 +56,8 @@ def install_stubs() -> None:
     nms_attention._launch = lambda pos, q, k, v, wg, bg, wl, active, s, name: (
         nms_attention.nms_relation_attention_reference(pos, q, k, v, wg, bg,
                                                        wl, active, s))
+    bias_attention._launch = lambda bias, q, k, v, wl, active, name: (
+        bias_attention.bias_attention_reference(bias, q, k, v, wl, active))
     stem._launch = stem.stem_reference
     res4._launch = res4.bottleneck_stack_reference
 
@@ -71,6 +74,11 @@ def install_stubs() -> None:
     rel.fused_nms_relation_attention_skip = counted(
         nms_attention, "launches",
         nms_attention.nms_relation_attention_reference)
+    rel.fused_geometric_bias_skip = counted(geom_bias, "skip_launches",
+                                            geom_bias.geom_bias_skip_reference)
+    rel.fused_bias_attention = bias_attention._BiasAttention.apply
+    rel.fused_bias_attention_skip = counted(
+        bias_attention, "skip_launches", bias_attention.bias_attention_reference)
     bb.stem_conv1_bn_relu = stem._Stem.apply
     nms.nms_keep_sorted = counted(nms_kernel, "launches",
                                   nms_kernel.nms_keep_sorted_reference)
@@ -93,6 +101,8 @@ def main() -> None:
                             family="dcn_learn_nms", dense_steps=3, fused_steps=0)
     _, _, model = chip_smoke.run_fused_flagship(torch, cpu, card=card, tiny=True)
     chip_smoke.run_fused_trunk(torch, cpu, model, card=card, tiny=True)
+    del model
+    chip_smoke.run_fpn(torch, cpu, card=card, tiny=True)
     print("rehearsal done: control flow only, no kernel ran")
 
 

@@ -14,7 +14,8 @@ import torch
 
 from relation_tpu_torch.models.backbone import conv1_w4
 from relation_tpu_torch.ops.embeddings import extract_multi_position_matrix_t
-from relation_tpu_torch.ops.kernels import (bottleneck_proj as BP,
+from relation_tpu_torch.ops.kernels import (bias_attention as BA,
+                                            bottleneck_proj as BP,
                                             dconv_col2im as DC, geom_bias as GB,
                                             nms_attention as NA,
                                             nms_kernel as NK, res4 as RS,
@@ -101,10 +102,13 @@ def test_stem_kernel_matches_plain(dev, B, Ho, Wo):
 
 @pytest.mark.parametrize("N,G,D,F,E", [(8, 16, 64, 128, 8), (37, 16, 64, 128, 8),
                                        (100, 4, 32, 64, 16), (21, 6, 16, 32, 4),
-                                       (13, 1, 16, 16, 8)])
+                                       (13, 1, 16, 16, 8), (150, 16, 64, 128, 8),
+                                       (129, 16, 64, 128, 8), (256, 8, 64, 128, 8)])
 def test_skip_attention_kernel_matches_plain(dev, N, G, D, F, E):
     """Cluster sizes 8, 4, 2 and 1 (the largest of them dividing G), ragged
-    N; inactive classes are left unwritten, so only active rows compare."""
+    N, and the row tiles of N > 128 (N=150: FIRST_N of the FPN learned-NMS
+    head, 3 tiles of 52 rows; 129: a last tile of 41 rows); inactive classes
+    are left unwritten, so only active rows compare."""
     rng = np.random.RandomState(N + G)
     C = 5
     pos = extract_multi_position_matrix_t(_tens(_boxes(rng, N, C), dev))
@@ -516,3 +520,126 @@ def test_bottleneck_stack_gradient_and_refusals(dev):
         BP.fused_proj_bottleneck(x.clone().requires_grad_(True),
                                  _tens(rng.randn(128, 128), dev).bfloat16(),
                                  _tens(rng.randn(128), dev), *_tower(rng, 128, 64, dev))
+
+
+# --------------------------------------------------------------------------
+# the two-stage learned-NMS attention of the FPN tail: skip geometric bias,
+# bias attention with and without class skipping
+# --------------------------------------------------------------------------
+
+def _bias_attention_case(rng, dev, C, N, G=16, D=64, F=128, E=8):
+    pos = extract_multi_position_matrix_t(_tens(_boxes(rng, N, C), dev)).contiguous()
+    wg, bg = _tens(rng.randn(64, G) * 0.1, dev), _tens(rng.randn(G) * 0.05, dev)
+    bias = GB.geom_bias_reference(pos, wg, bg)
+    q, k = (_tens(rng.randn(C, N, G * D) * 0.5, dev) for _ in range(2))
+    v = _tens(rng.randn(C, N, F), dev)
+    wl = _tens(rng.randn(G, F, E) * 0.1, dev)
+    return pos, wg, bg, bias, q, k, v, wl
+
+
+@pytest.mark.parametrize("C,N,n_active", [(5, 37, 3), (80, 150, 16), (3, 1, 1),
+                                          (7, 61, 0)])
+def test_geom_bias_skip_kernel_matches_plain(dev, C, N, n_active):
+    """Active rows bit-equal to the unskipped kernel's and in the bands of
+    the unskipped kernel's test against the plain version; no active class
+    launches a kernel that writes nothing."""
+    rng = np.random.RandomState(C + N)
+    pos, wg, bg, _, _, _, _, _ = _bias_attention_case(rng, dev, C, N)
+    act = np.zeros(C, np.int32)
+    act[rng.choice(C, n_active, replace=False)] = 1
+    active = torch.tensor(act, device=dev)
+    before = GB.skip_launches
+    got = GB.fused_geometric_bias_skip(pos, wg, bg, active)
+    assert GB.skip_launches == before + 1
+    on = active.bool()
+    assert torch.equal(got[on], GB.fused_geometric_bias(pos, wg, bg)[on])
+    want = GB.geom_bias_skip_reference(pos, wg, bg, active)
+    if n_active:
+        assert float((got[on].exp() - want[on].exp()).abs().max()) <= 1e-5
+        clear = want[on].exp() > 1e-2
+        assert float((got[on] - want[on])[clear].abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("C,N,n_active", [(5, 37, 3), (80, 150, 16), (80, 150, 80),
+                                          (3, 1, 2), (4, 65, 1), (2, 256, 2),
+                                          (3, 130, 2)])
+def test_bias_attention_kernels_match_plain(dev, C, N, n_active):
+    """Both entry points at ragged N (not a multiple of 4; one row tile, or
+    three above N=128), at the FPN tail's N=150 with 16 of 80 classes and
+    with all 80, and at N=256: active rows within 1e-4 of the largest
+    element of the plain version, and the unskipped kernel's rows equal to
+    the skip kernel's on active classes (one kernel body)."""
+    rng = np.random.RandomState(C * N + n_active)
+    _, _, _, bias, q, k, v, wl = _bias_attention_case(rng, dev, C, N)
+    act = np.zeros(C, np.int32)
+    act[rng.choice(C, n_active, replace=False)] = 1
+    active = torch.tensor(act, device=dev)
+    s0, f0 = BA.skip_launches, BA.launches
+    got = BA.fused_bias_attention_skip(bias, q, k, v, wl, active)
+    full = BA.fused_bias_attention(bias, q, k, v, wl)
+    assert (BA.skip_launches, BA.launches) == (s0 + 1, f0 + 1)
+    want = BA.bias_attention_reference(bias, q, k, v, wl)
+    on = active.bool()
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((full - want).abs().max()) <= tol
+    assert float((got[on] - want[on]).abs().max()) <= tol
+    assert torch.equal(got[on], full[on])
+
+
+def test_bias_attention_gradient_and_refusals(dev):
+    """Row 7 carries the gradient of autograd of its plain version (the JAX
+    custom VJP's rule) for every input; row 8 and the skip geometric bias
+    refuse an input that requires a gradient; a shape over the shared
+    memory of a block is refused with a ValueError before any launch, for
+    the two attention kernels (the largest N at these widths is 408)."""
+    rng = np.random.RandomState(5)
+    C, N = 3, 29
+    _, wg, bg, bias, q, k, v, wl = _bias_attention_case(rng, dev, C, N)
+    leaves = [a.clone().requires_grad_(True) for a in (bias, q, k, v, wl)]
+    cot = _tens(rng.randn(C, N, 16 * 8), dev)
+    before = BA.launches
+    g_kernel = torch.autograd.grad(BA.fused_bias_attention(*leaves), leaves, cot)
+    assert BA.launches == before + 1
+    g_plain = torch.autograd.grad(BA.bias_attention_reference(*leaves), leaves, cot)
+    for x, y in zip(g_kernel, g_plain):
+        assert float((x - y).abs().max()) <= 1e-5 * float(y.abs().max()) + 1e-9
+    active = torch.ones(C, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        BA.fused_bias_attention_skip(leaves[0], q, k, v, wl, active)
+    with pytest.raises(RuntimeError, match="no backward"):
+        GB.fused_geometric_bias_skip(torch.zeros((C, 4, N, N), device=dev),
+                                     wg.clone().requires_grad_(True), bg, active)
+    big = 412
+    assert NA.smem_bytes(408, 64, 8) <= NA.MAX_SMEM < NA.smem_bytes(big, 64, 8)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="shared memory"):
+        BA.fused_bias_attention(z((1, 16, big, big), device=dev),
+                                z((1, big, 1024), device=dev),
+                                z((1, big, 1024), device=dev),
+                                z((1, big, 128), device=dev), z((16, 128, 8), device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        NA.fused_nms_relation_attention_skip(
+            z((1, 4, big, big), device=dev), z((1, big, 1024), device=dev),
+            z((1, big, 1024), device=dev), z((1, big, 128), device=dev),
+            z((64, 16), device=dev), z(16, device=dev), z((16, 128, 8), device=dev),
+            torch.ones(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("N", [45, 150])
+def test_attention_kernels_take_values_wider_than_two_heads(dev, N):
+    """F = 160 > 2 * D = 64 and E = 12 (the value width is free: the kernels
+    project v through Wl before the attention): rows 6-9 within 1e-4 of the
+    largest element of their plain versions, at one row tile and at three."""
+    rng = np.random.RandomState(N)
+    C, G, D, F, E = 4, 8, 32, 160, 12
+    pos, wg, bg, bias, q, k, v, wl = _bias_attention_case(rng, dev, C, N, G, D, F, E)
+    active = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=dev)
+    on = active.bool()
+    want = BA.bias_attention_reference(bias, q, k, v, wl)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    pairs = [(BA.fused_bias_attention(bias, q, k, v, wl), slice(None)),
+             (BA.fused_bias_attention_skip(bias, q, k, v, wl, active), on),
+             (NA.fused_nms_relation_attention(pos, q, k, v, wg, bg, wl), slice(None)),
+             (NA.fused_nms_relation_attention_skip(pos, q, k, v, wg, bg, wl, active), on)]
+    for got, rows in pairs:
+        assert float((got[rows] - want[rows]).abs().max()) <= tol

@@ -200,12 +200,30 @@ def test_build_model_policy_and_refusals():
     cfg.TPU.DCN_POOL_DTYPE = "float32"
     assert build_model(cfg, device="meta").dcn_pool_dtype == torch.float32
     assert build_model(cfg, tiny=True, device="meta").dcn_pool_dtype == torch.float32
-    for sym in ("resnet_v1_101_fpn_rcnn",
+    # the FPN symbols build: the pyramid trunk (res2..res4 maps, a standard
+    # res5 at stride 32), the neck, the RPN on 256 channels and the 7x7x256
+    # pooled head; the learned-NMS head on the two-stage attention branch
+    # unless TPU.FPN_ALLOW_PALLAS says otherwise
+    from relation_tpu_torch.models.fpn import (FPNNeck, RelationRCNNFPN,
+                                               ResNet101C5Standard)
+    cfg.TPU.FPN_ALLOW_PALLAS = False
+    for sym in ("resnet_v1_101_rcnn_fpn",
                 "resnet_v1_101_rcnn_fpn_attention_1024_pairwise_position_"
                 "multi_head_16_learn_nms"):
         cfg.symbol = sym
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, device="meta")
+        fpn = build_model(cfg, device="meta")
+        assert isinstance(fpn, RelationRCNNFPN)
+        assert fpn.c4.out_stages == (2, 3, 4)
+        assert isinstance(fpn.c5, ResNet101C5Standard)
+        assert isinstance(fpn.neck, FPNNeck)
+        assert fpn.rpn.rpn_conv_3x3.weight.shape == (512, 256, 3, 3)
+        assert fpn.roi_pool_fc1.weight.shape == (1024, 7 * 7 * 256)
+        assert fpn.use_relation == ("attention" in sym)
+        nms = fpn.learn_nms_head.NMSRelationModule_0
+        assert not nms.allow_pallas and nms.compact_classes == 32
+    cfg.TPU.FPN_ALLOW_PALLAS = "lnms"
+    assert build_model(cfg, device="meta").learn_nms_head \
+        .NMSRelationModule_0.allow_pallas
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device("cuda")

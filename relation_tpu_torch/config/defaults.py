@@ -155,12 +155,12 @@ def default_config() -> AttrDict:
     # here unchanged. The port reads COMPUTE_DTYPE and HEAD_DTYPE (dtype
     # policy, core/trainer.py::build_model), ROI_METHOD, DCN_POOL_DTYPE,
     # FUSE_RES4 (the fused res4 stack kernel at inference, entry.py),
-    # GRAD_CLIP, and for FPN models FPN_ALLOW_PALLAS and NMS_COMPACT_CLASSES
-    # (the learned-NMS attention's branch) and FPN_SPLIT_PREDICT
-    # (core/predictor.py::build_predict_fn); the others select TPU/XLA code
-    # paths of relation_tpu and are accepted and ignored: GEOM_EMB_DTYPE (the
-    # kernels never materialise the sinusoid and compute in f32) and
-    # FPN_TOPK (the top-k is exact) among them.
+    # GRAD_CLIP, the learned-NMS attention's branch (LNMS_ATTN for C4
+    # models, FPN_ALLOW_PALLAS for FPN models, NMS_COMPACT_CLASSES for both)
+    # and FPN_SPLIT_PREDICT (core/predictor.py::build_predict_fn); the
+    # others select TPU/XLA code paths of relation_tpu and are accepted and
+    # ignored: GEOM_EMB_DTYPE (the kernels never materialise the sinusoid
+    # and compute in f32) and FPN_TOPK (the top-k is exact) among them.
     TPU = config.TPU = AttrDict()
     TPU.IMAGE_BUCKETS = [(608, 1024), (800, 1024), (1024, 1024)]
     TPU.MAX_GT = 100

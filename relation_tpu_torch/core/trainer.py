@@ -124,6 +124,10 @@ def build_model(cfg, tiny: bool = False,
                 dcn="dcn" in sym,
                 dcn_pool_dtype=torch.float32 if tiny else _dtype(
                     cfg.TPU.get("DCN_POOL_DTYPE", "bfloat16")),
+                # "pallas" (default: the skip kernel when at most half the
+                # classes are active) | "xla" (the dense or compact branch)
+                lnms_allow_pallas=str(cfg.TPU.get("LNMS_ATTN", "pallas")) != "xla",
+                compact_classes=int(cfg.TPU.get("NMS_COMPACT_CLASSES", 32)),
                 **common)
     if str(cfg.TPU.get("ROI_METHOD", "align")) != "align":
         raise NotImplementedError("TPU.ROI_METHOD='pool' (exact ROIPooling) "

@@ -35,10 +35,14 @@ class RelationRCNN(nn.Module):
                  conv_dtype: torch.dtype = torch.bfloat16,
                  head_dtype: torch.dtype = torch.float32,
                  freeze_through: int = 0, dcn: bool = False,
-                 dcn_pool_dtype: torch.dtype = torch.float32):
+                 dcn_pool_dtype: torch.dtype = torch.float32,
+                 lnms_allow_pallas: bool = True, compact_classes: int = 32):
         """``dcn``: deformable res5 and the deformable PSROI head (a no-trans
         pool feeds the zero-initialised ``offset`` FC, whose output steers a
-        second pool); ``dcn_pool_dtype`` is the dtype both pools run in."""
+        second pool); ``dcn_pool_dtype`` is the dtype both pools run in.
+        ``lnms_allow_pallas`` and ``compact_classes`` pick the learned-NMS
+        attention's branch (LearnNMSHead, TPU.LNMS_ATTN and
+        TPU.NMS_COMPACT_CLASSES)."""
         super().__init__()
         self.backbone = backbone
         self.dcn, self.dcn_pool_dtype = dcn, dcn_pool_dtype
@@ -72,7 +76,8 @@ class RelationRCNN(nn.Module):
             self.learn_nms_head = LearnNMSHead(
                 num_classes - 1, first_n, num_thresh, head_dim,
                 class_agnostic=class_agnostic, bbox_means=bbox_means,
-                bbox_stds=bbox_stds, attn_dtype=head_dtype)
+                bbox_stds=bbox_stds, attn_dtype=head_dtype,
+                allow_pallas=lnms_allow_pallas, compact_classes=compact_classes)
 
     def features_and_rpn(self, image: torch.Tensor, res4_folded=None):
         """image [H, W, 3] or s2d [12, H/2, W/2] (mean-subtracted BGR); a 4D

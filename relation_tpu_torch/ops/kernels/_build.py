@@ -103,6 +103,12 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def tally(shapes: dict, key: str) -> None:
+    """Count one launch at ``key`` (a shape) in a kernel module's
+    ``*_shapes`` dict, beside its plain launch counter."""
+    shapes[key] = shapes.get(key, 0) + 1
+
+
 def check(rc: int, name: str) -> None:
     """Raise if the C entry point returned a CUDA error code."""
     if rc != 0:

@@ -21,6 +21,7 @@ from relation_tpu_torch.ops.kernels.nms_attention import check_attention_shape
 
 launches = 0          # kernel launches over every class (CUDA only)
 skip_launches = 0     # kernel launches with class skipping (CUDA only)
+launch_shapes: dict[str, int] = {}  # launches over every class, by "C= N="
 
 
 def bias_attention_reference(bias, q, k, v, wl, active=None):
@@ -95,6 +96,7 @@ class _BiasAttention(torch.autograd.Function):
         global launches
         out = _launch(bias, q, k, v, wl, None, "fused_bias_attention")
         launches += 1
+        _build.tally(launch_shapes, f"C={bias.shape[0]} N={bias.shape[2]}")
         ctx.save_for_backward(bias, q, k, v, wl)
         return out
 

@@ -10,8 +10,8 @@ With the stride s on the 1x1 convs (Caffe's placement):
     y2  = relu(sum_t shift_t(y1) @ W3[t] + b2)
     out = relu(xs @ W1 + b1p + y2 @ Wc + b3)
 
-One call launches 3 CUDA kernels; the kernel runs the last line as one
-product [xs | y2] @ [W1 ; Wc]. The JAX package defines no gradient for it,
+One call is one memset and one launch of the persistent kernel that also
+runs the stack; it runs the last line as one product [xs | y2] @ [W1 ; Wc]. The JAX package defines no gradient for it,
 so an input that asks for one is refused on every device.
 """
 

@@ -24,6 +24,8 @@ from relation_tpu_torch.ops.kernels import _build
 launches = 0          # launches of the forward kernel (CUDA only)
 bwd_launches = 0      # launches of the backward kernel (CUDA only)
 skip_launches = 0     # launches of the class-skipping forward (CUDA only)
+launch_shapes: dict[str, int] = {}      # forward launches by "C= N= M="
+bwd_launch_shapes: dict[str, int] = {}  # backward launches by "C= N= M="
 _SUPPORTED_G = (4, 8, 16, 32)
 _BWD_TILE = 128       # pairs per tile of csrc/geom_bias_bwd.cu (kT)
 _BWD_BLOCKS_PER_SM = 4
@@ -177,6 +179,11 @@ def _launch_bwd(pos_t, kernel, bias, gout, scale, need_pos: bool = True,
     return (d_pos, dwb[:64], dwb[64]) + ((acc,) if want_acc else ())
 
 
+def _shape_key(pos_t) -> str:
+    C, _, N, M = pos_t.shape
+    return f"C={C} N={N} M={M}"
+
+
 class _GeomBias(torch.autograd.Function):
     """forward = the forward kernel, backward = the backward kernel; only
     (pos, W, b) are saved. The cotangent may arrive non-contiguous (the head
@@ -188,6 +195,7 @@ class _GeomBias(torch.autograd.Function):
         out = _launch(pos_t.contiguous(), kernel.contiguous(),
                       bias.contiguous(), scale)
         launches += 1
+        _build.tally(launch_shapes, _shape_key(pos_t))
         ctx.save_for_backward(pos_t, kernel, bias)
         ctx.scale = scale
         return out
@@ -201,6 +209,7 @@ class _GeomBias(torch.autograd.Function):
             pos_t.contiguous(), kernel.contiguous(), bias.contiguous(),
             gout.contiguous(), ctx.scale, need_pos=ctx.needs_input_grad[0])[:3]
         bwd_launches += 1
+        _build.tally(bwd_launch_shapes, _shape_key(pos_t))
         return d_pos, d_w, d_b, None
 
 

@@ -20,6 +20,7 @@ from relation_tpu_torch.ops.kernels.geom_bias import geom_bias_reference
 
 launches = 0          # kernel launches of the skip attention (CUDA only)
 full_launches = 0     # kernel launches of the unskipped attention (CUDA only)
+launch_shapes: dict[str, int] = {}  # skip-attention launches by "C= N="
 MAX_SMEM = 232_448    # shared memory a Hopper block may use, bytes
 _WHOLE_N = 128        # up to this N a block takes every query row, above
 _ROW_TILE = 64        # at most this many (csrc/attention_rows.cuh)
@@ -136,6 +137,7 @@ def fused_nms_relation_attention_skip(pos_t, q, k, v, wg, bg, wl, active,
     out = _launch(pos_t, q, k, v, wg, bg, wl, active, scale,
                   "fused_nms_relation_attention_skip")
     launches += 1
+    _build.tally(launch_shapes, f"C={pos_t.shape[0]} N={pos_t.shape[2]}")
     return out
 
 

@@ -11,8 +11,9 @@ Per block, on the map x [H, W, C] as H*W rows:
     x  = relu(x + y2 @ Wc + b3)                1x1 expand + residual
 
 with f32 products of bf16 operands, and y1, y2 and the block output cast
-back to x.dtype. One call launches 3B CUDA kernels after one copy of x
-into the output; the caller's tensor is never written.
+back to x.dtype. One call is one memset of the kernel's tile counters and
+one launch of the persistent wgmma/TMA kernel, whatever B; the caller's
+tensor is never written.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -450,7 +452,13 @@ def _band(got, want):
 @pytest.mark.parametrize("H,W,C,Cmid,B", [(7, 9, 64, 64, 1), (13, 21, 256, 64, 2),
                                           (19, 33, 512, 128, 3),
                                           (10, 17, 1024, 256, 1),
-                                          (11, 13, 256, 128, 22)])
+                                          (11, 13, 256, 128, 22),
+                                          # W around the 64-pixel TMA box
+                                          (5, 63, 128, 64, 2), (3, 64, 256, 128, 2),
+                                          (4, 65, 128, 64, 1), (2, 128, 256, 128, 2),
+                                          (3, 256, 128, 64, 1),
+                                          # H*W below one 64-pixel tile
+                                          (3, 5, 64, 64, 2), (1, 1, 128, 128, 1)])
 def test_bottleneck_stack_kernel_matches_plain(dev, H, W, C, Cmid, B):
     """Ragged maps (rows not a multiple of the 64-row tile), Cmid 64, 128 and
     256, B = 1 to 22. Both sum exact bf16 products in f32 in other orders
@@ -473,9 +481,46 @@ def test_bottleneck_stack_kernel_matches_plain(dev, H, W, C, Cmid, B):
     assert err <= (2.0 ** -7 if B == 1 else 2e-2) and corr > 0.9999, (err, corr)
 
 
+def test_bottleneck_stack_kernel_at_the_res4_shape(dev):
+    """res4b1..b22 of the 608x1024 trunk: [38, 64, 1024], Cmid 256, B = 22,
+    in the bands of the ragged cases."""
+    rng = np.random.RandomState(4)
+    x = _map(rng, 38, 64, 1024, dev)
+    w = _tower(rng, 1024, 256, dev, (22,))
+    got = RS.fused_bottleneck_stack(x, *w)
+    err, corr = _band(got, RS.bottleneck_stack_reference(x, *w))
+    assert bool(torch.isfinite(got.float()).all())
+    assert err <= 2e-2 and corr > 0.9999, (err, corr)
+
+
+@pytest.mark.parametrize("H,W,C,Cmid,B", [(9, 70, 256, 128, 3), (38, 64, 1024, 256, 2)])
+def test_bottleneck_stack_kernel_in_place(dev, H, W, C, Cmid, B):
+    """The C entry point with out aliasing x: block 0 reads each tile of x
+    before its expand overwrites it, so the result is the out-of-place one,
+    bit for bit."""
+    from relation_tpu_torch.ops.kernels import _build
+    rng = np.random.RandomState(H + B)
+    x = _map(rng, H, W, C, dev)
+    w = [t.contiguous() for t in _tower(rng, C, Cmid, dev, (B,))]
+    want = RS.fused_bottleneck_stack(x, *w)
+    y1 = torch.empty((H * W, Cmid), dtype=torch.bfloat16, device=dev)
+    y2 = torch.empty_like(y1)
+    fn = _build.load("bottleneck").bottleneck_stack
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(*[_build.ptr(t) for t in [x] + w + [x, y1, y2]], B, H, W, C, Cmid,
+            _build.stream_ptr(dev))
+    _build.check(rc, "bottleneck_stack")
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+
+
 @pytest.mark.parametrize("Hi,Wi,Cin,Cmid,Cout,stride", [
     (14, 18, 64, 64, 256, 1), (26, 34, 256, 128, 512, 2),
-    (10, 22, 512, 256, 1024, 2), (7, 9, 128, 64, 128, 1)])
+    (10, 22, 512, 256, 1024, 2), (7, 9, 128, 64, 128, 1),
+    # output W of 63, 65 and 64 pixels, and a map below one tile
+    (4, 126, 128, 64, 128, 2), (2, 130, 256, 128, 256, 2),
+    (3, 64, 64, 64, 128, 1), (2, 6, 128, 64, 128, 2)])
 def test_proj_bottleneck_kernel_matches_plain(dev, Hi, Wi, Cin, Cmid, Cout,
                                               stride):
     rng = np.random.RandomState(Hi * Wi + stride)

@@ -10,11 +10,14 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
 2. Holds each of the twelve kernels against its plain PyTorch version on
-   the card, at the shapes the driven models give it (the NMS at the
+   the card, at the shapes the driven models give it (the geometric bias at
+   its four launch shapes; the NMS at the
    proposal shape and at the classic tail's C=80, Np=512; the fused skip
    attention at N=100 and at the FPN tail's N=150; the skip geometric bias
    and the bias attention with and without class skipping at the FPN
-   learned-NMS tail's C=80, N=150, 16 or 80 classes active; the deformable
+   learned-NMS tail's C=80, N=150, 16 or 80 classes active, and over 80
+   classes at the C4 tail's N=100, two runs bit-equal, with the bound of
+   the tensor-core route beside the f32 one; the deformable
    col2im at B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, with the
    run-to-run difference its atomics leave; the bottleneck stack at res4
    (22 blocks), res3 and res2 and the projection bottleneck at res2a, res3a
@@ -94,6 +97,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
 F32_PEAK = 67e12          # f32 outside the tensor cores, flop/s
 BF16_PEAK = 989e12        # dense bf16 tensor cores, flop/s
+TF32_PEAK = 495e12        # dense TF32 tensor cores, flop/s
 SINCOS_FLOPS = 24         # one sin/cos pair: range reduction + two polynomials
 IOU_FLOPS = 15            # one divide-free suppression test
 TOP_K, IOU_MIN, SCORE_ATOL = 50, 0.95, 2e-2   # tools/flagship_golden.py bands
@@ -112,6 +116,18 @@ def bound(bytes_moved: float, flops: float, peak: float):
     """(bound_ms, bound_by): the larger of memory time and compute time."""
     t_mem, t_ops = bytes_moved / MEM_BW, flops / peak
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations")
+
+
+def f32_bound(bytes_moved: float, products: float, rest: float):
+    """(bound_ms, bound_by, simt_ms) of f32 work: the matrix products at the
+    dense TF32 tensor-core rate (split TF32 carries them at f32 accuracy),
+    the rest (sin/cos, softmax, elementwise) at the f32 rate; simt_ms is the
+    bound with every flop at the f32 rate, printed beside it."""
+    t_mem = bytes_moved / MEM_BW
+    t_ops = products / TF32_PEAK + rest / F32_PEAK
+    simt_ms = max(t_mem, (products + rest) / F32_PEAK) * 1e3
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations", simt_ms)
 
 
 def time_ms(torch, fn, inner: int = 10, reps: int = 21) -> float:
@@ -164,6 +180,19 @@ def check_geom_bias(torch, dev, rng):
             torch.tensor(np.stack([random_boxes(rng, 100) for _ in range(80)], 1),
                          device=dev)),
     }
+    # the other two launch shapes of the driven paths: the head in training
+    # (300 proposals + 16 ground-truth rows against 300 keys) and the FPN
+    # learned-NMS tail (FIRST_N 150); their own stream, so that the two
+    # shapes above and every later draw of rng stay as they were
+    rng2 = np.random.RandomState(10)
+    shapes.update({
+        "head C=1 N=316 M=300": extract_position_matrix_t(
+            torch.tensor(random_boxes(rng2, 316), device=dev), 300)[None],
+        "fpn C=80 N=M=150": extract_multi_position_matrix_t(
+            torch.tensor(np.stack([random_boxes(rng2, 150) for _ in range(80)], 1),
+                         device=dev)),
+    })
+    json_shape = "lnms C=80 N=M=100"
     result = None
     for label, pos in shapes.items():
         pos = pos.contiguous()
@@ -181,17 +210,20 @@ def check_geom_bias(torch, dev, rng):
         ms = time_ms(torch, lambda: K._launch(pos, w, b, 100.0))
         plain_ms = time_ms(torch, lambda: K.geom_bias_reference(pos, w, b))
         pairs = C * N * M
-        bms, bby = bound(4 * (4 * pairs + G * pairs + 65 * G),
-                         pairs * (2 * 64 * G + 32 * SINCOS_FLOPS + 3 * G), F32_PEAK)
+        bms, bby, simt = f32_bound(4 * (4 * pairs + G * pairs + 65 * G),
+                                   pairs * 2 * 64 * G,
+                                   pairs * (32 * SINCOS_FLOPS + 3 * G))
         log(f"[kernel] geom_bias {label}: max|exp err| {err:.3e} (tol {tol:.0e}), "
             f"max|log err| where acc>1e-2 {err_log:.3e} (tol 1e-4) "
             f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms n/a bound_us {bms * 1e3:.2f} ({bby})")
+            f"library_ms n/a bound_us {bms * 1e3:.2f} ({bby}; all flops at the "
+            f"f32 rate: {simt * 1e3:.2f})")
         if not ok:
             fail(f"geom_bias {label} disagrees with its plain version")
-        result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                      bound_by=bby, library_ms=None)
-    return result  # the larger (learned-NMS) shape goes into the JSON line
+        if label == json_shape:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=bby, library_ms=None)
+    return result  # the learned-NMS shape of earlier slices' JSON lines
 
 
 def check_geom_bias_bwd(torch, dev, rng):
@@ -250,18 +282,23 @@ def check_geom_bias_bwd(torch, dev, rng):
                                                         need_pos=False))
         plain_ms = time_ms(torch, lambda: K.geom_bias_bwd_reference(
             pos, w, b, gout), inner=2, reps=7)
-        # per pair: 32 sin/cos, three 64 x G products (acc, d_trig, d_W),
-        # the clamp/divide and the d_pos tail
-        bms, bby = bound(4 * ((4 + G + 4) * pairs + 2 * 65 * G),
-                         pairs * (3 * 2 * 64 * G + 32 * SINCOS_FLOPS + 4 * G
-                                  + 32 * 5), F32_PEAK)
+        # per pair: three 64 x G products (acc, d_trig, d_W) on the tensor
+        # cores; 32 sin/cos, the clamp/divide and the d_pos tail at f32
+        products, rest = pairs * 3 * 2 * 64 * G, pairs * (
+            32 * SINCOS_FLOPS + 4 * G + 32 * 5)
+        bms, bby, simt = f32_bound(4 * ((4 + G + 4) * pairs + 2 * 65 * G),
+                                   products, rest)
+        mbms, mbby, _ = f32_bound(4 * ((4 + G) * pairs + 2 * 65 * G), products,
+                                  rest)
         log(f"[kernel] geom_bias_bwd {label}: max abs err / max "
             f"{', '.join(errs)} (tol 1e-4 of max), two runs bit-equal, "
             f"{'OK' if ok else 'FAIL'}; clamp: acc of forward and backward "
             f"bit-equal on {pairs * G} elements, {near} within 1e-6 of the "
             f"clamp, {'OK' if clamp_ok else 'FAIL'}; kernel_ms {ms:.4f} "
-            f"(without d_pos, as the model runs it: {ms_model:.4f}) plain_ms "
-            f"{plain_ms:.4f} library_ms n/a bound_us {bms * 1e3:.2f} ({bby})")
+            f"(without d_pos, as the model runs it: {ms_model:.4f}, bound_us "
+            f"{mbms * 1e3:.2f} ({mbby})) plain_ms {plain_ms:.4f} library_ms n/a "
+            f"bound_us {bms * 1e3:.2f} ({bby}; all flops at the f32 rate: "
+            f"{simt * 1e3:.2f})")
         if not (ok and clamp_ok):
             fail(f"geom_bias_bwd {label} disagrees with its plain version")
         result = dict(max_abs_err=float((got[1] - want[1]).abs().max()), ms=ms,
@@ -375,12 +412,13 @@ def attention_inputs(torch, dev, rng, C=80, N=100, G=16, D=64, Fd=128, E=8):
 def attention_bound(A, C, N, G, D, Fd, E):
     """Bound of the fused attention over A computed classes of C, with the
     product re-associated as attn @ (v @ Wl_g): the least work the function
-    needs."""
-    flops = A * (2 * N * N * D * G + N * N * (32 * SINCOS_FLOPS + 2 * 64 * G)
-                 + 5 * N * N * G + 2 * N * Fd * E * G + 2 * N * N * E * G)
+    needs; the products at the TF32 rate (f32_bound)."""
+    products = A * (2 * N * N * D * G + 2 * 64 * G * N * N + 2 * N * Fd * E * G
+                    + 2 * N * N * E * G)
+    rest = A * N * N * (32 * SINCOS_FLOPS + 5 * G)
     nbytes = A * 4 * (4 * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
         64 * G + G + G * Fd * E + C)
-    return bound(nbytes, flops, F32_PEAK)
+    return f32_bound(nbytes, products, rest)
 
 
 def sdpa_ms(torch, pos, q, k, v, wg, bg, N, G, D, Fd):
@@ -425,11 +463,12 @@ def check_attention(torch, dev, rng):
         idx = torch.nonzero(on).flatten()
         library_ms = sdpa_ms(torch, pos[idx], q[idx], k[idx], v[idx], wg, bg,
                              N, G, D, Fd)
-        bms, bby = attention_bound(n_active, C, N, G, D, Fd, E)
+        bms, bby, simt = attention_bound(n_active, C, N, G, D, Fd, E)
         log(f"[kernel] nms_attention_skip C={C} N={N} active={n_active}: max abs "
             f"err on active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
             f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
-            f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
+            f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby}; all flops at the "
+            f"f32 rate: {simt * 1e3:.2f})")
         if not ok:
             fail(f"fused_nms_relation_attention_skip N={N} disagrees with its "
                  "plain version")
@@ -478,13 +517,15 @@ def check_geom_bias_skip(torch, dev, rng):
     ms = time_ms(torch, lambda: K.fused_geometric_bias_skip(pos, w, b, active))
     plain_ms = time_ms(torch, lambda: K.geom_bias_skip_reference(pos, w, b, active))
     pairs = n_active * N * M          # the work of the active classes only
-    bms, bby = bound(4 * (4 * pairs + G * pairs + 65 * G + C),
-                     pairs * (2 * 64 * G + 32 * SINCOS_FLOPS + 3 * G), F32_PEAK)
+    bms, bby, simt = f32_bound(4 * (4 * pairs + G * pairs + 65 * G + C),
+                               pairs * 2 * 64 * G,
+                               pairs * (32 * SINCOS_FLOPS + 3 * G))
     log(f"[kernel] geom_bias_skip C={C} N=M={N} active={n_active}: max|exp err| "
         f"{err:.3e} (tol 1e-5), max|log err| where acc>1e-2 {err_log:.3e} (tol "
         f"1e-4), active rows bit-equal to the unskipped kernel: {same}, "
         f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms n/a bound_us {bms * 1e3:.2f} ({bby})")
+        f"library_ms n/a bound_us {bms * 1e3:.2f} ({bby}; all flops at the f32 "
+        f"rate: {simt * 1e3:.2f})")
     if not ok:
         fail("fused_geometric_bias_skip disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -494,13 +535,13 @@ def check_geom_bias_skip(torch, dev, rng):
 def bias_attention_bound(A, C, N, G, D, Fd, E):
     """Bound of the bias attention over A computed classes of C: QK^T, the
     softmax, v @ Wl_g and attn @ (v @ Wl_g) (the re-associated product, the
-    least work the function needs); the bias, q, k, v of those classes read
-    and their output written once."""
-    flops = A * (2 * N * N * D * G + 5 * N * N * G + 2 * N * Fd * E * G
-                 + 2 * N * N * E * G)
+    least work the function needs), the three products at the TF32 rate
+    (f32_bound); the bias, q, k, v of those classes read and their output
+    written once."""
+    products = A * (2 * N * N * D * G + 2 * N * Fd * E * G + 2 * N * N * E * G)
     nbytes = A * 4 * (G * N * N + 2 * N * G * D + N * Fd + N * G * E) + 4 * (
         G * Fd * E + C)
-    return bound(nbytes, flops, F32_PEAK)
+    return f32_bound(nbytes, products, A * 5 * N * N * G)
 
 
 def _check_bias_attention(torch, dev, rng, skip: bool):
@@ -532,12 +573,17 @@ def _check_bias_attention(torch, dev, rng, skip: bool):
     plain_ms = time_ms(torch, plain, inner=2, reps=11)
     idx = torch.nonzero(on).flatten()
     library_ms = sdpa_bias_ms(torch, bias[idx], q[idx], k[idx], v[idx], G, D)
-    bms, bby = bias_attention_bound(n_active, C, N, G, D, Fd, E)
+    bms, bby, simt = bias_attention_bound(n_active, C, N, G, D, Fd, E)
+    again = kernel()
+    torch.cuda.synchronize()
+    same = torch.equal(got[on], again[on])
+    ok = ok and same
     name = "bias_attention_skip" if skip else "bias_attention"
     log(f"[kernel] {name} C={C} N={N} active={n_active}: max abs err on active "
-        f"rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
-        f"bound_us {bms * 1e3:.2f} ({bby})")
+        f"rows {err:.3e} (tol {tol:.1e}), two runs bit-equal: {same}, "
+        f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms(SDPA core) {library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby}; "
+        f"all flops at the f32 rate: {simt * 1e3:.2f})")
     if not ok:
         fail(f"fused_{name} disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -561,12 +607,37 @@ def check_bias_attention(torch, dev, rng):
     err = float((got - want).abs().max())
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     ms = time_ms(torch, lambda: K.fused_bias_attention(bias, q, k, v, wl))
-    bms, bby = bias_attention_bound(C, C, N, G, D, v.shape[2], E)
+    plain_ms = time_ms(torch, lambda: K.bias_attention_reference(
+        bias, q, k, v, wl, None), inner=2, reps=11)
+    library_ms = sdpa_bias_ms(torch, bias, q, k, v, G, D)
+    bms, bby, simt = bias_attention_bound(C, C, N, G, D, v.shape[2], E)
     log(f"[kernel] bias_attention C={C} N={N} active={C}: max abs err {err:.3e} "
         f"(tol {tol:.1e}) {'OK' if err <= tol else 'FAIL'}; kernel_ms {ms:.4f} "
-        f"bound_us {bms * 1e3:.2f} ({bby})")
+        f"plain_ms {plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
+        f"bound_us {bms * 1e3:.2f} ({bby}; all flops at the f32 rate: "
+        f"{simt * 1e3:.2f})")
     if not err <= tol:
         fail("fused_bias_attention disagrees with its plain version at N=100")
+    # above one key chunk (152 keys): three chunks and three blocks of query
+    # rows joined by the online softmax, at 408, the largest N of the
+    # learned-NMS widths before the chunked design; a stream of its own, so
+    # that every later draw of rng stays as it was
+    C, N = 4, 408
+    pos, q, k, v, wg, bg, wl = attention_inputs(
+        torch, dev, np.random.RandomState(11), C=C, N=N)
+    bias = geom_bias_reference(pos, wg, bg).contiguous()
+    got = K.fused_bias_attention(bias, q, k, v, wl)
+    want = K.bias_attention_reference(bias, q, k, v, wl, None)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    ms = time_ms(torch, lambda: K.fused_bias_attention(bias, q, k, v, wl))
+    bms, bby, _ = bias_attention_bound(C, C, N, G, D, v.shape[2], E)
+    log(f"[kernel] bias_attention C={C} N={N} active={C} (three key chunks): "
+        f"max abs err {err:.3e} (tol {tol:.1e}) {'OK' if err <= tol else 'FAIL'}; "
+        f"kernel_ms {ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
+    if not err <= tol:
+        fail("fused_bias_attention disagrees with its plain version at N=408")
     return result
 
 
@@ -588,11 +659,12 @@ def check_attention_full(torch, dev, rng):
     ms = time_ms(torch, lambda: K.fused_nms_relation_attention(*args))
     plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
     library_ms = sdpa_ms(torch, *args[:6], N, G, D, Fd)
-    bms, bby = attention_bound(C, C, N, G, D, Fd, E)
+    bms, bby, simt = attention_bound(C, C, N, G, D, Fd, E)
     log(f"[kernel] nms_attention_full C={C} N={N}: max abs err {err:.3e} "
         f"(tol {tol:.1e}) {'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
-        f"bound_us {bms * 1e3:.2f} ({bby})")
+        f"bound_us {bms * 1e3:.2f} ({bby}; all flops at the f32 rate: "
+        f"{simt * 1e3:.2f})")
     if not ok:
         fail("fused_nms_relation_attention disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,

@@ -5,8 +5,9 @@
 // Replaces relation_tpu/ops/pallas/nms_attention.py::fused_bias_attention
 // (the Pallas _bias_attention_kernel; entry bias_attention_full) and
 // ::fused_bias_attention_skip (_bias_attention_kernel_skip; entry
-// bias_attention_skip). One kernel body serves both: the full form passes no
-// active mask. For each active class c and head g:
+// bias_attention_skip), nms_attention.py:170-305. One kernel body serves
+// both: the full form passes no active mask. For each active class c and
+// head g:
 //
 //   attn   = softmax(q_g k_g^T / sqrt(D) + bias[c, g])                     [N, N]
 //   out[c, :, g*E:(g+1)*E] = attn @ (v[c] @ Wl[g])                         [N, E]
@@ -16,98 +17,593 @@
 // unwritten, as on the TPU: the learned-NMS head's where() mask guards them.
 //
 // What bounds it on the H100: at the FPN learned-NMS shape (N=150, G=16,
-// D=64, F=128, E=8) a class does about 59 Mflop of f32 work (QK^T 46 M,
-// attn @ u_g 5.8 M, v @ Wl_g 4.9 M, the softmax 1.8 M) and reads about 2.8
-// MB, of which the [G, N, N] bias is 1.44 MB. At all 80 classes that is 4.7
-// GFLOP (0.070 ms at 67 TFLOP/s) against 226 MB of bytes in and out (0.067
-// ms at 3.35 TB/s): operations bound it, barely; at 16 active classes about
-// 0.014 ms.
+// D=64, F=128, E=8) a class reads about 2.8 MB (the [G, N, N] bias 1.44 MB,
+// q and k 1.23 MB) and does about 59 Mflop (QK^T 46 M, attn @ u_g 5.8 M,
+// v @ Wl_g 4.9 M, the softmax 1.8 M). At all 80 classes that is 226 MB of
+// bytes in and out, 0.067 ms at 3.35 TB/s: on the tensor cores (495
+// TFLOP/s TF32) the products take less, so the bytes bound it.
 //
-// Design (attention_rows.cuh): first u = v @ Wl per head for every active
-// class (value_proj_kernel, a tiled product into a [C, N, G*E] workspace),
-// so the attention works on E = 8 columns of values, not F = 128. Then grid
-// (C, G, row tiles), one block per (class, head, tile of query rows: all of
-// them up to N=128, at most 64 above); an inactive class returns at once.
-// A block holds q_g^T of its rows, k_g^T, its [rows, N] score tile and u_g
-// in shared memory (about 89 KB at N=150, so two blocks of 512 threads
-// share an SM), fills the score tile with its rows of the bias (coalesced
-// along the keys, eight loads in flight a thread), then runs the scores, the
-// softmax and attn @ u_g of attention_rows.cuh, the same code as the fully
-// fused kernel (nms_attention.cu). Shared memory grows with N, not N^2: N
-// up to 408 fits at these widths. Tensor cores (mma.sync / wgmma) are later
-// work.
+// Design. Every product runs on the tensor cores, mma.sync m16n8k8 in split
+// TF32 (mma_tf32.cuh: f32 accuracy at three products a step).
+// - u = v @ Wl per head first, for every active class, into the caller's
+//   [C, N, G*E] workspace (value_proj_kernel): a block takes 64 rows by 64
+//   columns of one class, a warp 16 of the rows; Wl and v staged in shared
+//   memory.
+// - Then a persistent grid, as many blocks as the SMs hold, walks the tasks
+//   (active class, head, block of query rows) in a fixed order; the block
+//   builds the list of active classes itself. A block has one warp per 16
+//   query rows, at most 10 (160 rows a task), and takes the keys in chunks
+//   of at most 152, 8 NT >= the chunk's keys, NT n8 tiles of accumulators a
+//   warp. Up to N = 152 a task is all rows and keys of (class, head), one
+//   chunk; above, several tasks and chunks, joined by the online softmax.
+// - A chunk's q rows, k rows, u rows and bias tile are staged into shared
+//   memory with cp.async (rows padded to strides whose fragment reads fall
+//   on distinct banks, rows past N zero-filled), one chunk ahead: the next
+//   chunk's bias and u as soon as the warps hold this chunk's bias in their
+//   accumulators, its q and k as soon as QK^T is done.
+// - S = bias + (q / sqrt(D)) k^T, accumulated onto the bias, four n8 tiles
+//   at a time so that a tile's three products are not back to back; columns
+//   past the chunk start at -inf. The softmax runs on the accumulator
+//   fragments: a row's max and sum over a lane's values, then across the
+//   four lanes of the row, carried from chunk to chunk as a running max m
+//   and sum l (the output so far rescaled by exp(m_old - m_new)). Then P u,
+//   with P = exp(S - m) taken from the accumulators as A fragments (key
+//   2 tig + h of an n8 tile is k index tig + 4 h, so the layouts match with
+//   no shuffle) and each split product in an accumulator of its own. Between
+//   chunks the lane keeps its rows of the output, not yet divided by l, in
+//   place in out (no other lane touches them); the last chunk divides. With one
+//   chunk this is the plain softmax, term for term.
+// - No sum crosses lanes of different rows or blocks, and every task runs
+//   the same instructions wherever it lands: the output is the same from run
+//   to run, and an active class's rows are the same in both entries.
+// Limits: D a multiple of 8 up to 64, F a multiple of 4; any N. The wrapper
+// refuses other shapes before the launch, and shapes whose shared memory
+// exceeds a block's.
 #include <cuda_runtime.h>
+#include <math.h>
 
-#include "attention_rows.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kChunkNT = 19;    // n8 tiles of a key chunk: 152 keys
+constexpr int kMaxWarps = 10;   // row tiles of a task: 160 query rows
 
-size_t smem_bytes(int N, int D, int E) {
-  return attn_rows::common_floats(N, D, E) * sizeof(float);
+__host__ __device__ inline int row_tiles(int N) { return (N + 15) / 16; }
+// warps of a block: one a row tile, at most kMaxWarps
+__host__ __device__ inline int warps_for(int N) {
+  const int rt = row_tiles(N);
+  return rt < kMaxWarps ? rt : kMaxWarps;
+}
+// keys of a chunk: all of them up to 152, else 152
+__host__ __device__ inline int chunk_keys(int N) {
+  return N < 8 * kChunkNT ? N : 8 * kChunkNT;
+}
+// row strides, in floats: q and k rows = 8 mod 32 (a half-warp's float2
+// fragment reads cover 32 banks); u and Wl rows = 4 mod 16 (a warp's reads
+// cover 32 banks)
+__host__ __device__ inline int k_stride(int D) { return D + ((8 - D % 32) + 32) % 32; }
+__host__ __device__ inline int u_stride(int E) { return (E + 7) / 8 * 8 + 4; }
+
+// shared-memory layout of the attention kernel, in floats
+struct Layout {
+  int q, bias, k, u0, u1, end;
+};
+__host__ __device__ inline Layout layout(int NT, int N, int D, int E) {
+  const int NP = 8 * NT, DS = k_stride(D), US = u_stride(E);
+  const int rows = 16 * warps_for(N);
+  const int tile = (rows < N ? rows : N) * chunk_keys(N);
+  Layout l;
+  l.q = 0;                                               // [rows][DS]
+  l.bias = rows * DS;                                    // [rows][chunk keys]
+  l.k = l.bias + (tile + 3) / 4 * 4;                     // [NP][DS]
+  l.u0 = l.k + NP * DS;                                  // [NP][US]
+  l.u1 = l.u0 + NP * US;                                 // [NP][US]
+  l.end = l.u1 + NP * US;
+  return l;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct Shape {
+  int N, G, D, E, NP, NR, KS, DS, US, KC, nrb, nkc;
+};
+
+// One chunk of a task: class c, head g, query rows [r0, r0 + rows) and keys
+// [k0, k0 + keys) (rows and keys cut at N).
+struct Chunk {
+  int c, g, r0, rows, k0, keys;
+};
+__device__ __forceinline__ Chunk chunk_of(const int* cls, int task, int kc,
+                                          const Shape& sh) {
+  Chunk x;
+  const int per_class = sh.G * sh.nrb;
+  x.c = cls[task / per_class];
+  x.g = task % per_class / sh.nrb;
+  x.r0 = task % sh.nrb * sh.NR;
+  x.rows = min(sh.NR, sh.N - x.r0);
+  x.k0 = kc * sh.KC;
+  x.keys = min(sh.KC, sh.N - x.k0);
+  return x;
+}
+
+// rows [0, rows) x columns [0, cols) of a row-major source with leading
+// dimension ld into dst [rows][ds]; zeros at row >= nv or column >= cv.
+// 16-byte pieces when cols, cv, ld and the source are multiples of 4 floats.
+__device__ __forceinline__ void stage_rows(float* dst, int ds, const float* src,
+                                           long ld, int rows, int nv, int cols,
+                                           int cv, bool vec) {
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+      const int j = i / c4, e = 4 * (i % c4);
+      const bool ok = j < nv && e < cv;
+      cp_async16(dst + j * ds + e, ok ? src + j * ld + e : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int j = i / cols, e = i % cols;
+      const bool ok = j < nv && e < cv;
+      cp_async4(dst + j * ds + e, ok ? src + j * ld + e : src, ok);
+    }
+  }
+}
+
+// the chunk's q rows [NR][DS] and k rows [NP][DS]
+__device__ __forceinline__ void stage_qk(float* qs, float* ks, const float* q,
+                                         const float* k, const Chunk& x,
+                                         const Shape& sh) {
+  const long GD = (long)sh.G * sh.D, off = (long)x.c * sh.N * GD + x.g * sh.D;
+  stage_rows(qs, sh.DS, q + off + x.r0 * GD, GD, sh.NR, x.rows, sh.D, sh.D, true);
+  stage_rows(ks, sh.DS, k + off + x.k0 * GD, GD, sh.NP, x.keys, sh.D, sh.D, true);
+}
+
+// the chunk's u rows [NP][US]
+__device__ __forceinline__ void stage_u(float* us, const float* u, const Chunk& x,
+                                        const Shape& sh) {
+  const long GE = (long)sh.G * sh.E;
+  stage_rows(us, sh.US, u + ((long)x.c * sh.N + x.k0) * GE + x.g * sh.E, GE,
+             sh.NP, x.keys, sh.US - 4, sh.E, sh.E % 4 == 0);
+}
+
+// the chunk's bias tile [rows][keys]: one contiguous run when the chunk holds
+// every key, else rows of keys
+__device__ __forceinline__ void stage_bias(float* bs, const float* bias,
+                                           const Chunk& x, const Shape& sh) {
+  const long off = (((long)x.c * sh.G + x.g) * sh.N + x.r0) * sh.N + x.k0;
+  const float* src = bias + off;
+  if (x.keys == sh.N) {
+    const int n = x.rows * sh.N;
+    if (off % 4 == 0 && n % 4 == 0) {
+      for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
+        cp_async16(bs + i, src + i, true);
+    } else {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(bs + i, src + i, true);
+    }
+  } else {
+    stage_rows(bs, x.keys, src, sh.N, x.rows, x.rows, x.keys, x.keys,
+               sh.N % 4 == 0 && x.keys % 4 == 0 && off % 4 == 0);
+  }
+}
+
+// The accumulators' starting values: the bias of rows r0 + gid and
+// r0 + gid + 8 at columns 8 nt + 2 tig + {0, 1} of the chunk's tile b
+// [rows][keys], -inf past its keys, 0 on rows past it (whose results are not
+// stored).
+template <int NT>
+__device__ __forceinline__ void load_bias(float (&s)[NT][4], const float* b,
+                                          int r0, int rows, int keys, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool pair = (keys & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gid + 8 * h;
+    const bool ok = row < rows;
+    const float* br = b + (long)row * keys;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * tig;
+      float2 v = make_float2(0.f, 0.f);
+      if (ok && col + 1 < keys && pair) {
+        v = *reinterpret_cast<const float2*>(br + col);
+      } else if (ok) {
+        if (col < keys) v.x = br[col];
+        if (col + 1 < keys) v.y = br[col + 1];
+      }
+      s[nt][2 * h] = col < keys ? v.x : -INFINITY;
+      s[nt][2 * h + 1] = col + 1 < keys ? v.y : -INFINITY;
+    }
+  }
+}
+
+// s += (q / sqrt(D)) k^T over the D columns: q rows r0.. from qs [NR][DS]
+// (k8 step kk holds d = 8 kk + 2 tig + h at k index tig + 4 h), k from ks
+// [NP][DS]; four n8 tiles at a time, their products interleaved.
+template <int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* qs,
+                                       const float* ks, int r0, const Shape& sh,
+                                       float inv_sqrt_d, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const float* qa = qs + (r0 + gid) * sh.DS + 2 * tig;
+  const float* kb = ks + gid * sh.DS + 2 * tig;
+#pragma unroll 1
+  for (int kk = 0; kk < sh.KS; ++kk) {
+    const float2 x = *reinterpret_cast<const float2*>(qa + 8 * kk);
+    const float2 y = *reinterpret_cast<const float2*>(qa + 8 * sh.DS + 8 * kk);
+    const float a[4] = {x.x * inv_sqrt_d, y.x * inv_sqrt_d, x.y * inv_sqrt_d,
+                        y.y * inv_sqrt_d};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const tf32::Split t = tf32::split(a[i]);
+      ah[i] = t.hi;
+      al[i] = t.lo;
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < NT; n0 += 4) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (n0 + j >= NT) break;
+        const float2 b = *reinterpret_cast<const float2*>(
+            kb + 8 * (n0 + j) * sh.DS + 8 * kk);
+        const tf32::Split b0 = tf32::split(b.x), b1 = tf32::split(b.y);
+        bh[j][0] = b0.hi; bh[j][1] = b1.hi;
+        bl[j][0] = b0.lo; bl[j][1] = b1.lo;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < NT) tf32::mma(s[n0 + j], al, bh[j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < NT) tf32::mma(s[n0 + j], ah, bl[j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < NT) tf32::mma(s[n0 + j], ah, bh[j]);
+    }
+  }
+}
+
+// s <- exp(s - m) with m the running max of row gid + 8 h over the chunks
+// so far (m[h], l[h] its running sum; first: the task's first chunk);
+// scale[h] = exp(m_old - m_new), the factor of the output so far
+template <int NT>
+__device__ __forceinline__ void softmax_rows(float (&s)[NT][4], float (&m)[2],
+                                             float (&l)[2], float (&scale)[2],
+                                             bool first) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mc = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mc = fmaxf(mc, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+    const float mn = first ? mc : fmaxf(m[h], mc);
+    const float ms = mn == -INFINITY ? 0.f : mn;   // a row with no key yet
+    scale[h] = first ? 0.f : expf(m[h] - ms);
+    m[h] = mn;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][2 * h] = expf(s[nt][2 * h] - ms);
+      s[nt][2 * h + 1] = expf(s[nt][2 * h + 1] - ms);
+      sum += s[nt][2 * h] + s[nt][2 * h + 1];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[h] = first ? sum : l[h] * scale[h] + sum;
+  }
+}
+
+// o = P u[:, e0:e0+8]: P from the accumulators (key 8 nt + 2 tig + h at
+// k index tig + 4 h), u from us [NP][US]; the three split products summed
+// in accumulators of their own, then (lo hi + hi lo) + hi hi
+template <int NT>
+__device__ __forceinline__ void attn_times_u(const float (&s)[NT][4],
+                                             const float* us, int US, int e0,
+                                             int lane, float (&o)[4]) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const float* ur = us + 2 * tig * US + e0 + gid;
+  float o1[4] = {0.f, 0.f, 0.f, 0.f}, o2[4] = {0.f, 0.f, 0.f, 0.f};
+  float o3[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float a[4] = {s[nt][0], s[nt][2], s[nt][1], s[nt][3]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const tf32::Split x = tf32::split(a[i]);
+      ah[i] = x.hi;
+      al[i] = x.lo;
+    }
+    const tf32::Split b0 = tf32::split(ur[8 * nt * US]);
+    const tf32::Split b1 = tf32::split(ur[(8 * nt + 1) * US]);
+    const uint32_t bh[2] = {b0.hi, b1.hi}, bl[2] = {b0.lo, b1.lo};
+    tf32::mma(o1, al, bh);
+    tf32::mma(o2, ah, bl);
+    tf32::mma(o3, ah, bh);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = (o1[i] + o2[i]) + o3[i];
+}
+
+// the chunk's softmax and attn @ u into rows r0.. of the chunk's rows of
+// out[c, :, g*E:(g+1)*E]: the output so far rescaled and added to, and
+// divided by the row sum after the last chunk
+template <int NT>
+__device__ __forceinline__ void finish(float (&s)[NT][4], float (&m)[2],
+                                       float (&l)[2], bool first, bool last,
+                                       const float* us, float* __restrict__ out,
+                                       const Chunk& x, int r0, const Shape& sh,
+                                       int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  float scale[2];
+  softmax_rows<NT>(s, m, l, scale, first);
+  const int GE = sh.G * sh.E;
+  float* orow = out + ((long)x.c * sh.N + x.r0 + r0) * GE + x.g * sh.E;
+  for (int e0 = 0; e0 < sh.E; e0 += 8) {
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    attn_times_u<NT>(s, us, sh.US, e0, lane, o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = gid + 8 * (i >> 1), e = e0 + 2 * tig + (i & 1);
+      if (r0 + row < x.rows && e < sh.E) {
+        float* p = orow + (long)row * GE + e;
+        float v = o[i];
+        if (!first) v += *p * scale[i >> 1];
+        *p = last ? v / l[i >> 1] : v;
+      }
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT <= 13 ? 224 : 320, NT <= 13 ? 2 : 1)
 bias_attention_kernel(const float* __restrict__ bias, const float* __restrict__ q,
                       const float* __restrict__ k, const float* __restrict__ u,
                       const int* __restrict__ active, float* __restrict__ out,
-                      int N, int G, int D, int E) {
-  const int c = blockIdx.x;
-  if (active != nullptr && active[c] == 0) return;
-  attn_rows::Tile t;
-  t.c = c; t.g = blockIdx.y; t.N = N; t.G = G; t.D = D; t.E = E;
-  t.TR = attn_rows::tile_rows(N);
-  t.NP = attn_rows::pad4(N);
-  t.r0 = blockIdx.z * t.TR;
-  t.rows = min(t.TR, N - t.r0);
-  if (t.rows <= 0) return;
-
+                      int C, int N, int G, int D, int E) {
   extern __shared__ float4 smem4[];
-  const attn_rows::Smem s = attn_rows::carve(reinterpret_cast<float*>(smem4), t);
-  attn_rows::load_tile<kThreads>(q, k, u, s, t);
-  // 1. the tile's rows of bias[c, g]: rows x N contiguous floats, eight
-  //    loads in flight a thread
-  const float* bc = bias + (((long)c * G + t.g) * N + t.r0) * N;
-  const int total = t.rows * N;
-  for (int base = threadIdx.x; base < total; base += 8 * kThreads) {
-    float b[8];
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const int idx = base + w * kThreads;
-      b[w] = idx < total ? __ldg(bc + idx) : 0.f;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L = layout(NT, N, D, E);
+  int* cls = reinterpret_cast<int*>(smem + L.end);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // the active classes, in order
+  __shared__ int n_cls;
+  if (warp == 0) {
+    int n = 0;
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      const int c = c0 + lane;
+      const bool on = c < C && (active == nullptr || active[c] != 0);
+      const unsigned msk = __ballot_sync(0xffffffffu, on);
+      if (on) cls[n + __popc(msk & ((1u << lane) - 1u))] = c;
+      n += __popc(msk);
     }
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const int idx = base + w * kThreads;
-      if (idx < total) s.S[(idx / N) * t.NP + idx % N] = b[w];
-    }
+    if (lane == 0) n_cls = n;
   }
   __syncthreads();
 
-  // 2-4. scores, softmax, attn @ u_g
-  attn_rows::attend_tile<kThreads>(out, s, t);
+  Shape sh;
+  sh.N = N; sh.G = G; sh.D = D; sh.E = E; sh.NP = 8 * NT;
+  sh.NR = 16 * warps_for(N); sh.KS = D / 8; sh.DS = k_stride(D);
+  sh.US = u_stride(E); sh.KC = chunk_keys(N);
+  sh.nrb = (N + sh.NR - 1) / sh.NR; sh.nkc = (N + sh.KC - 1) / sh.KC;
+  const int tasks = n_cls * G * sh.nrb;
+  if ((int)blockIdx.x >= tasks) return;
+  const float inv_sqrt_d = 1.f / sqrtf((float)D);
+  const int r0 = 16 * warp;               // this warp's rows of a chunk
+  float* qs = smem + L.q;
+  float* bs = smem + L.bias;
+  float* ks = smem + L.k;
+  float* ub[2] = {smem + L.u0, smem + L.u1};
+
+  // chunk kc of task t, staged while chunk kc - 1 (or the block's task
+  // before) computes
+  {
+    const Chunk x = chunk_of(cls, blockIdx.x, 0, sh);
+    stage_bias(bs, bias, x, sh);
+    stage_u(ub[0], u, x, sh);
+    stage_qk(qs, ks, q, k, x, sh);
+    cp_async_commit();
+  }
+  int cur = 0;
+  float m[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+  for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
+    for (int kc = 0; kc < sh.nkc; ++kc, cur ^= 1) {
+      const Chunk x = chunk_of(cls, t, kc, sh);
+      const bool same = kc + 1 < sh.nkc;
+      const int tn = same ? t : t + gridDim.x;
+      const bool more = tn < tasks;
+      const Chunk nx = chunk_of(cls, more ? tn : t, same ? kc + 1 : 0, sh);
+      cp_async_wait_all();
+      __syncthreads();
+      float s[NT][4];
+      load_bias<NT>(s, bs, r0, x.rows, x.keys, lane);
+      __syncthreads();                       // the bias buffer is free
+      if (more) {
+        stage_bias(bs, bias, nx, sh);
+        stage_u(ub[cur ^ 1], u, nx, sh);
+      }
+      cp_async_commit();
+      scores<NT>(s, qs, ks, r0, sh, inv_sqrt_d, lane);
+      __syncthreads();                       // the q and k buffers are free
+      if (more) stage_qk(qs, ks, q, k, nx, sh);
+      cp_async_commit();
+      finish<NT>(s, m, l, kc == 0, !same, ub[cur], out, x, r0, sh, lane);
+    }
+  }
 }
 
-// u = v @ Wl per head first (attention_rows.cuh), into the caller's u
-// [C, N, G*E] workspace, then the attention.
+// ---------------------------------------------------------------------------
+// u = v @ Wl per head: u[c, j, g*E + e] = sum_f v[c, j, f] Wl[g, f, e].
+// Block (row block, column block, class): 64 rows j by 64 columns g*E + e,
+// four warps of 16 rows. Staged by cp.async: the block's columns of Wl seen
+// as an [F, G*E] matrix W[f][g*E + e] (F padded to 8 with zeros, row stride
+// 68) and its rows of v (row stride 8 mod 32). Per k8 step (f = 8 kk +
+// 2 tig + h at k index tig + 4 h) a warp splits its A fragment and the
+// eight B fragments, then runs the three products over the eight n8 tiles
+// in turn, so that no product waits on the one before it.
+constexpr int kProjWarps = 4, kProjRows = 16 * kProjWarps, kProjCols = 64;
+constexpr int kProjWS = kProjCols + 4;   // 4 mod 16: B reads on 32 banks
+
+__host__ __device__ inline int proj_rows(int F) { return (F + 7) / 8 * 8; }
+__host__ __device__ inline int proj_floats(int F) {
+  return proj_rows(F) * kProjWS + kProjRows * k_stride(proj_rows(F));
+}
+
+__global__ void __launch_bounds__(32 * kProjWarps)
+value_proj_kernel(const float* __restrict__ v, const float* __restrict__ wl,
+                  const int* __restrict__ active, float* __restrict__ u, int N,
+                  int F, int G, int E) {
+  const int c = blockIdx.z;
+  if (active != nullptr && active[c] == 0) return;
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);
+  const int GE = G * E, FP = proj_rows(F);
+  const int rb = blockIdx.x * kProjRows, cb = blockIdx.y * kProjCols;
+  // W[f][cb + col]: runs of four columns (one head when E is a multiple of
+  // 4) by 16-byte pieces, else by floats; zeros past F and past G*E
+  if (E % 4 == 0) {
+    for (int i = threadIdx.x; i < FP * (kProjCols / 4); i += blockDim.x) {
+      const int f = i / (kProjCols / 4), col = cb + 4 * (i % (kProjCols / 4));
+      const bool ok = f < F && col < GE;
+      cp_async16(ws + f * kProjWS + col - cb,
+                 ok ? wl + ((long)(col / E) * F + f) * E + col % E : wl, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < FP * kProjCols; i += blockDim.x) {
+      const int f = i / kProjCols, col = cb + i % kProjCols;
+      const bool ok = f < F && col < GE;
+      cp_async4(ws + f * kProjWS + col - cb,
+                ok ? wl + ((long)(col / E) * F + f) * E + col % E : wl, ok);
+    }
+  }
+  // the block's rows of v, zeros past N and past F
+  float* vs = ws + FP * kProjWS;
+  const int VS = k_stride(FP);
+  stage_rows(vs, VS, v + ((long)c * N + rb) * F, F, kProjRows, N - rb, FP, F,
+             true);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r0 = rb + 16 * warp;
+  if (r0 >= N) return;
+  const float* va = vs + (16 * warp + gid) * VS + 2 * tig;
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  for (int kk = 0; kk < FP / 8; ++kk) {
+    const float2 x = *reinterpret_cast<const float2*>(va + 8 * kk);
+    const float2 y = *reinterpret_cast<const float2*>(va + 8 * VS + 8 * kk);
+    const float a[4] = {x.x, y.x, x.y, y.y};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const tf32::Split t = tf32::split(a[i]);
+      ah[i] = t.hi;
+      al[i] = t.lo;
+    }
+    const float* wr = ws + (8 * kk + 2 * tig) * kProjWS + gid;
+    uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const tf32::Split b0 = tf32::split(wr[8 * nt]);
+      const tf32::Split b1 = tf32::split(wr[kProjWS + 8 * nt]);
+      bh[nt][0] = b0.hi; bh[nt][1] = b1.hi;
+      bl[nt][0] = b0.lo; bl[nt][1] = b1.lo;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) tf32::mma(acc[nt], al, bh[nt]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) tf32::mma(acc[nt], ah, bl[nt]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) tf32::mma(acc[nt], ah, bh[nt]);
+  }
+  float* uc = u + (long)c * N * GE;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + gid + 8 * (i >> 1), col = cb + 8 * nt + 2 * tig + (i & 1);
+      if (row < N && col < GE) uc[(long)row * GE + col] = acc[nt][i];
+    }
+}
+
+cudaError_t launch_value_proj(const float* v, const float* wl, const int* active,
+                              float* u, int C, int N, int F, int G, int E,
+                              cudaStream_t stream) {
+  const size_t smem = (size_t)proj_floats(F) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      value_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kProjRows - 1) / kProjRows,
+            (G * E + kProjCols - 1) / kProjCols, C);
+  value_proj_kernel<<<grid, 32 * kProjWarps, smem, stream>>>(v, wl, active, u,
+                                                             N, F, G, E);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch(const float* bias, const float* q, const float* k,
+                   const float* u, const int* active, float* out, int C, int N,
+                   int G, int D, int E, cudaStream_t stream) {
+  const size_t smem = (layout(NT, N, D, E).end + (size_t)C) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      bias_attention_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = 32 * warps_for(N);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, bias_attention_kernel<NT>, threads, smem);
+  if (err != cudaSuccess) return err;
+  const long most = (long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long tasks = (long)C * G * ((N + 16 * warps_for(N) - 1) / (16 * warps_for(N)));
+  const int blocks = (int)(tasks < most ? tasks : most);
+  bias_attention_kernel<NT><<<blocks, threads, smem, stream>>>(
+      bias, q, k, u, active, out, C, N, G, D, E);
+  return cudaGetLastError();
+}
+
+// u = v @ Wl per head into the caller's u [C, N, G*E] workspace, then the
+// attention.
 int dispatch(const float* bias, const float* q, const float* k, const float* v,
              const float* wl, const int* active, float* out, float* u, int C,
              int N, int G, int D, int F, int E, void* stream) {
   if (C == 0 || N == 0 || G == 0) return 0;
-  if (D % 4 != 0 || F % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || D > 64 || F % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = attn_rows::launch_value_proj(v, wl, active, u, C, N, F, G, E, s);
+  cudaError_t err = launch_value_proj(v, wl, active, u, C, N, F, G, E, s);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(N, D, E);
-  err = cudaFuncSetAttribute(
-      bias_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(C, G, attn_rows::row_tiles(N));
-  bias_attention_kernel<<<grid, kThreads, smem, s>>>(bias, q, k, u, active, out,
-                                                     N, G, D, E);
-  return (int)cudaGetLastError();
+  const int nt = (chunk_keys(N) + 7) / 8;
+  if (nt <= 2) return (int)launch<2>(bias, q, k, u, active, out, C, N, G, D, E, s);
+  if (nt <= 4) return (int)launch<4>(bias, q, k, u, active, out, C, N, G, D, E, s);
+  if (nt <= 8) return (int)launch<8>(bias, q, k, u, active, out, C, N, G, D, E, s);
+  if (nt <= 13) return (int)launch<13>(bias, q, k, u, active, out, C, N, G, D, E, s);
+  return (int)launch<kChunkNT>(bias, q, k, u, active, out, C, N, G, D, E, s);
 }
 
 }  // namespace

@@ -96,9 +96,17 @@ class NMSRelationModule(nn.Module):
     roi_feat [N, C, F], position_mat_t [C, 4, N, N], optional active [C]
     -> [N, C, dim_out].
 
-    Every branch runs in f32, whatever ``dtype`` the query and key denses
-    take. The dense path over every class is two kernels: the geometric
-    bias, then the bias attention; both carry gradients.
+    The query and key denses compute in ``dtype``. The dense path over
+    every class is two kernels: the geometric bias, then the bias attention;
+    both carry gradients. Where the JAX package runs that path's einsums in
+    ``dtype`` (``_dense_attention_impl``: the Pallas dense route and both
+    XLA routes), the port rounds their operands to ``dtype`` as JAX casts
+    them (q and k, the values, linear_out), runs the f32 kernels on the
+    rounded values and rounds the output to ``dtype``, as JAX's last einsum
+    returns it; the geometric bias and the softmax stay f32, as in JAX. JAX
+    also rounds the scores, the attention and attn @ v to ``dtype`` inside
+    the path; the kernels keep those in f32. The skip and fully fused
+    kernels take f32 operands, as JAX's do.
 
     ``allow_pallas`` (True, the C4 default) picks the JAX package's Pallas
     branch. With ``active`` (inference) and at most C/2 active classes (a
@@ -150,9 +158,11 @@ class NMSRelationModule(nn.Module):
         if not (self.allow_pallas if allow_pallas is None else allow_pallas):
             m = self.compact_classes
             if active is not None and 0 < m < c and int(active.sum()) <= m:
+                dt = q.dtype
                 bias = fused_geometric_bias_skip(position_mat_t, wg, bg, active)
-                y = fused_bias_attention_skip(bias, q.float(), k.float(),
-                                              feat.float(), wl, active)
+                y = fused_bias_attention_skip(
+                    bias, q.float(), k.float(), feat.to(dt).float(),
+                    wl.to(dt).float(), active).to(dt).float()
             else:
                 y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl)
         elif active is not None and int(active.sum()) <= c // 2:
@@ -169,7 +179,11 @@ class NMSRelationModule(nn.Module):
 
 
 def _dense_attention(position_mat_t, q, k, feat, wg, bg, wl):
-    """Every class in two stages, in f32: the geometric-bias kernel, then the
-    bias-attention kernel; both carry gradients."""
+    """Every class in two stages: the geometric-bias kernel, then the
+    bias-attention kernel, both f32 and both carrying gradients; the values
+    and linear_out rounded to q's dtype first and the output after, as JAX
+    casts them."""
+    dt = q.dtype
     bias = fused_geometric_bias(position_mat_t, wg, bg)        # [C, g, N, N]
-    return fused_bias_attention(bias, q.float(), k.float(), feat.float(), wl)
+    return fused_bias_attention(bias, q.float(), k.float(), feat.to(dt).float(),
+                                wl.to(dt).float()).to(dt).float()

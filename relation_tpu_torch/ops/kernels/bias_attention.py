@@ -17,11 +17,47 @@ import ctypes
 import torch
 
 from relation_tpu_torch.ops.kernels import _build
-from relation_tpu_torch.ops.kernels.nms_attention import check_attention_shape
+from relation_tpu_torch.ops.kernels.nms_attention import MAX_SMEM
 
 launches = 0          # kernel launches over every class (CUDA only)
 skip_launches = 0     # kernel launches with class skipping (CUDA only)
 launch_shapes: dict[str, int] = {}  # launches over every class, by "C= N="
+MAX_D = 64            # q/k columns of the kernel's k8 steps
+_NT_BUCKETS = (2, 4, 8, 13, 19)   # n8 tiles of a key chunk, by instantiation
+_CHUNK_KEYS = 152     # keys a chunk holds above N = 152 (19 n8 tiles)
+_MAX_WARPS = 10       # query row tiles of a task (160 rows)
+
+
+def smem_bytes(N: int, D: int, E: int, C: int, F: int = 0) -> int:
+    """The larger dynamic shared memory of the two kernels of
+    csrc/bias_attention.cu: the attention's q rows of a task, k rows and
+    two buffers of u rows of a key chunk, the chunk's bias tile and the list
+    of active classes; the value projection's 64 columns of Wl seen as an
+    [F, G*E] matrix (F padded to 8, rows 4 floats longer) and its 64 rows of
+    v."""
+    keys = min(N, _CHUNK_KEYS)
+    nt = next(b for b in _NT_BUCKETS if 8 * b >= keys)
+    rows = 16 * min(-(-N // 16), _MAX_WARPS)
+    ds = D + (8 - D % 32) % 32
+    us = -(-E // 8) * 8 + 4
+    floats = (rows * ds + -(-min(rows, N) * keys // 4) * 4 + 8 * nt * ds
+              + 2 * 8 * nt * us + C)
+    fp = -(-F // 8) * 8
+    proj = fp * 68 + 64 * (fp + (8 - fp % 32) % 32)
+    return 4 * max(floats, proj)
+
+
+def check_shape(name: str, C: int, N: int, D: int, F: int, E: int) -> None:
+    """Raise ValueError, before any launch, for a shape the kernels do not
+    take."""
+    if D % 8 or D > MAX_D or F % 4:
+        raise ValueError(f"{name}: needs D a multiple of 8 up to {MAX_D} and "
+                         f"F a multiple of 4 (got D={D}, F={F})")
+    need = smem_bytes(N, D, E, C, F)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: N={N}, F={F}, E={E} need {need} bytes of "
+                         f"shared memory a block, over the {MAX_SMEM} a Hopper "
+                         "block has")
 
 
 def bias_attention_reference(bias, q, k, v, wl, active=None):
@@ -57,8 +93,8 @@ def _launch(bias, q, k, v, wl, active, name):
             or (active is not None and active.shape != (C,))):
         raise ValueError(f"{name}: inconsistent shapes {tuple(bias.shape)}, "
                          f"{tuple(q.shape)}, {tuple(v.shape)}, {tuple(wl.shape)}")
-    check_attention_shape(name, N, D, F, E)
-    # q, k and v are read as float4s: 16-byte aligned storage
+    check_shape(name, C, N, D, F, E)
+    # the kernels read their inputs in 16-byte pieces: 16-byte aligned storage
     tensors = [t.contiguous() for t in (bias, q, k, v, wl)]
     tensors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
     for t in tensors:
@@ -116,11 +152,13 @@ class _BiasAttention(torch.autograd.Function):
 def fused_bias_attention(bias, q, k, v, wl) -> torch.Tensor:
     """Attention with a precomputed additive [C, G, N, N] bias over every
     class, differentiable. Shapes as the plain version; returns [C, N, G*E],
-    head-major. CUDA tensors launch the kernel (one block per class, head
-    and tile of query rows, all of them up to N=128 and at most 64 above;
-    N up to 408 at the learned-NMS widths, a larger shape is refused with a
-    ValueError before the launch) and take their gradient from autograd of
-    the plain version; CPU tensors take the plain version."""
+    head-major. CUDA tensors launch the kernel (a persistent grid over
+    (class, head, up to 160 query rows), a warp per 16 query rows on the
+    tensor cores, keys in chunks of up to 152 joined by an online softmax;
+    any N, D a multiple of 8 up to 64 and F a multiple of 4, another shape
+    is refused with a ValueError before the launch) and take their gradient
+    from autograd of the plain version; CPU tensors take the plain
+    version."""
     if bias.device.type != "cuda":
         return bias_attention_reference(bias, q, k, v, wl)
     return _BiasAttention.apply(bias, q, k, v, wl)

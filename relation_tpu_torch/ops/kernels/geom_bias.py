@@ -27,8 +27,6 @@ skip_launches = 0     # launches of the class-skipping forward (CUDA only)
 launch_shapes: dict[str, int] = {}      # forward launches by "C= N= M="
 bwd_launch_shapes: dict[str, int] = {}  # backward launches by "C= N= M="
 _SUPPORTED_G = (4, 8, 16, 32)
-_BWD_TILE = 128       # pairs per tile of csrc/geom_bias_bwd.cu (kT)
-_BWD_BLOCKS_PER_SM = 4
 
 
 def _frequencies(wave_length: float = 1000.0) -> np.ndarray:
@@ -158,13 +156,18 @@ def _launch_bwd(pos_t, kernel, bias, gout, scale, need_pos: bool = True,
         d_pos = torch.zeros_like(pos_t) if need_pos else None
         return (d_pos, dwb[:64], dwb[64]) + ((torch.empty_like(gout),)
                                              if want_acc else ())
-    tiles = -(-(C * N * M) // _BWD_TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(tiles, _BWD_BLOCKS_PER_SM * sms))
-    partial = torch.empty((blocks, 65, G), dtype=torch.float32, device=dev)
+    lib = _build.load("geom_bias_bwd")
+    grid = lib.geom_bias_bwd_blocks
+    grid.restype = ctypes.c_int
+    grid.argtypes = [ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.check(grid(G, C * N * M, ctypes.byref(blocks)),
+                     "geom_bias_bwd_blocks")
+    partial = torch.empty((blocks.value, 65, G), dtype=torch.float32, device=dev)
     d_pos = torch.empty_like(pos_t) if need_pos else None
     acc = torch.empty_like(gout) if want_acc else None
-    fn = _build.load("geom_bias_bwd").geom_bias_bwd
+    fn = lib.geom_bias_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_long, ctypes.c_float,
@@ -173,7 +176,7 @@ def _launch_bwd(pos_t, kernel, bias, gout, scale, need_pos: bool = True,
     rc = fn(_build.ptr(pos_t), _build.ptr(kernel), _build.ptr(bias),
             _build.ptr(gout), null if d_pos is None else _build.ptr(d_pos),
             null if acc is None else _build.ptr(acc), _build.ptr(partial),
-            _build.ptr(dwb), C, G, N * M, float(scale), blocks,
+            _build.ptr(dwb), C, G, N * M, float(scale), blocks.value,
             _build.stream_ptr(dev))
     _build.check(rc, "geom_bias_bwd")
     return (d_pos, dwb[:64], dwb[64]) + ((acc,) if want_acc else ())

@@ -4,9 +4,9 @@ CUDA card, by switching its parts off one at a time.
     python3 -m relation_tpu_torch.tools.ablate_bottleneck
 
 Builds variants of csrc/bottleneck.cu, each one text substitution away from
-the source (one nvcc per variant, in parallel, into relation_tpu_torch/
-_build/ablate/), and times each on the same seeded inputs with CUDA events:
-the identity-block stack at res4 (B=22, [38, 64, 1024], Cmid 256), at res4
+the source (tools/_ablate.py: one nvcc per variant, in parallel, into
+relation_tpu_torch/_build/ablate_bottleneck/), and times each on the same
+seeded inputs with CUDA events: the identity-block stack at res4 (B=22, [38, 64, 1024], Cmid 256), at res4
 with B=1, at res3 (B=3) and res2 (B=2), and the projection block at res4a,
 res3a and res2a of the 608x1024 trunk. A variant that switches a part off
 computes garbage; a time marked * is from a variant whose output differs
@@ -27,75 +27,31 @@ Prints the card's name and power limit first. Needs a CUDA card and nvcc.
 from __future__ import annotations
 
 import ctypes
-import statistics
-import subprocess
 
 import numpy as np
 import torch
 
 from relation_tpu_torch.ops.kernels import _build
+from relation_tpu_torch.tools._ablate import build_variants, print_card, time_ms
 
+SRC = "bottleneck.cu"
 RULE = "p.Cmid % 128 == 0 && p.Cout % 128 == 0 && p.T * (p.Cmid / 128) >= sms"
 VARIANTS = {
     "full": [],
-    "nomma": [("wgmma_step<BN>(acc, da + 2 * kk, db + 128 * kk);", "")],
-    "noload": [("mbar_expect_tx(full(s), kStage);\n"
+    "nomma": [(SRC, "wgmma_step<BN>(acc, da + 2 * kk, db + 128 * kk);", "")],
+    "noload": [(SRC, "mbar_expect_tx(full(s), kStage);\n"
                 "        issue<BN>(p, it, ks, a_tile(s), b_tile(s), full(s));",
                 "mbar_arrive(full(s));")],
-    "nodeps": [("      wait_deps(p, it);\n", "")],
-    "noepi": [("      if (goff[k] < 0) continue;",
+    "nodeps": [(SRC, "      wait_deps(p, it);\n", "")],
+    "noepi": [(SRC, "      if (goff[k] < 0) continue;",
                "      if (goff[k] < 0 || goff[k] >= 0) continue;")],
-    "bn64": [(RULE, "false")],
-    "bn128": [(RULE, "p.Cmid % 128 == 0 && p.Cout % 128 == 0")],
+    "bn64": [(SRC, RULE, "false")],
+    "bn128": [(SRC, RULE, "p.Cmid % 128 == 0 && p.Cout % 128 == 0")],
 }
 STACKS = [(38, 64, 1024, 256, 22), (38, 64, 1024, 256, 1), (76, 128, 512, 128, 3),
           (152, 256, 256, 64, 2)]
 PROJS = [(76, 128, 512, 256, 1024, 2), (152, 256, 256, 128, 512, 2),
          (152, 256, 64, 64, 256, 1)]
-
-
-def build():
-    """{variant: ctypes library}, built in parallel."""
-    src = (_build.CSRC / "bottleneck.cu").read_text()
-    out = _build.BUILD_DIR / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for a, b in subs:
-            if a not in text:
-                raise RuntimeError(f"variant {name}: {a!r} is not in the source")
-            text = text.replace(a, b)
-        cu = out / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
-    return libs
-
-
-def time_ms(fn, inner=5, reps=11):
-    """Median device ms per call (CUDA events around `inner` calls)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def run(libs, entry, argtypes, tensors, ints, out, label):
@@ -114,18 +70,15 @@ def run(libs, entry, argtypes, tensors, ints, out, label):
         if want is None:
             want = out.clone()
         mark = "" if torch.equal(out, want) else "*"
-        row.append(f"{name} {time_ms(call):.4f}{mark}")
+        row.append(f"{name} {time_ms(call, inner=5):.4f}{mark}")
     print(f"{label}: " + "; ".join(row), flush=True)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ablate_bottleneck needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
-    libs = build()
+    print_card()
+    libs = build_variants("bottleneck", VARIANTS)
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)
 

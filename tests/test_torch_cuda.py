@@ -159,11 +159,15 @@ def _bwd_case(rng, C, N, M, G, dev, b_shift=0.0):
 
 
 @pytest.mark.parametrize("G", [4, 8, 16, 32])
-@pytest.mark.parametrize("C,N,M", [(1, 37, 53), (80, 9, 11), (3, 1, 1)])
+@pytest.mark.parametrize("C,N,M", [(1, 37, 53), (80, 9, 11), (3, 1, 1),
+                                   (1, 316, 300), (2, 33, 31), (80, 100, 100),
+                                   (5, 7, 9)])
 def test_geom_bias_bwd_kernel_matches_plain(dev, G, C, N, M):
-    """Ragged shapes (N*M no multiple of the 128-pair tile, fewer pairs than
-    one tile), C = 1 and 80, every supported G: d_pos, d_W, d_b within 1e-4
-    of their maxima, and bit-equal from run to run."""
+    """Ragged shapes (C*N*M no multiple of the 32-pair unit: 94,800 pairs at
+    the head's 316x300, 2,046, 315; fewer pairs than one unit), C = 1 and
+    80 (and the learned-NMS shape N=M=100), every supported G: d_pos, d_W,
+    d_b within 1e-4 of their maxima, bit-equal from run to run, and a grid
+    no larger than the units give work for."""
     rng = np.random.RandomState(G + C + N)
     pos, w, b, gout = _bwd_case(rng, C, N, M, G, dev)
     got = GB._launch_bwd(pos, w, b, gout, 100.0)
@@ -174,6 +178,13 @@ def test_geom_bias_bwd_kernel_matches_plain(dev, G, C, N, M):
         assert torch.equal(x, z), name
     d_pos, d_w, d_b = GB._launch_bwd(pos, w, b, gout, 100.0, need_pos=False)
     assert d_pos is None and torch.equal(d_w, got[1]) and torch.equal(d_b, got[2])
+    fn = GB._build.load("geom_bias_bwd").geom_bias_bwd_blocks
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_long,
+                                             ctypes.c_void_p]
+    blocks = ctypes.c_int(0)
+    assert fn(G, C * N * M, ctypes.byref(blocks)) == 0
+    units = -(-(C * N * M) // 32)
+    assert 1 <= blocks.value <= -(-units // 4)
 
 
 @pytest.mark.parametrize("G", [4, 16, 32])
@@ -607,13 +618,20 @@ def test_geom_bias_skip_kernel_matches_plain(dev, C, N, n_active):
 
 @pytest.mark.parametrize("C,N,n_active", [(5, 37, 3), (80, 150, 16), (80, 150, 80),
                                           (3, 1, 2), (4, 65, 1), (2, 256, 2),
-                                          (3, 130, 2)])
+                                          (3, 130, 2), (3, 17, 2), (80, 100, 80),
+                                          (4, 151, 3), (2, 200, 1), (1, 255, 1),
+                                          (3, 305, 3), (2, 408, 2), (1, 412, 1)])
 def test_bias_attention_kernels_match_plain(dev, C, N, n_active):
-    """Both entry points at ragged N (not a multiple of 4; one row tile, or
-    three above N=128), at the FPN tail's N=150 with 16 of 80 classes and
-    with all 80, and at N=256: active rows within 1e-4 of the largest
-    element of the plain version, and the unskipped kernel's rows equal to
-    the skip kernel's on active classes (one kernel body)."""
+    """Both entry points at ragged N (no multiple of the 8-key n-tile or of
+    the 16-row tile: 17, 37, 65, 130, 151 odd, 255), at the C4 tail's N=100
+    and the FPN tail's N=150 with 16 of 80 classes and with all 80, and
+    above one key chunk of 152 (N=200, 255, 256: two chunks and two blocks
+    of query rows; 305: a last chunk of one key; 408, the largest N the
+    earlier design took at these widths, and 412 beyond it: three chunks
+    and three row blocks): active rows within 1e-4 of the largest element of
+    the plain version, the unskipped kernel's rows equal to the skip
+    kernel's on active classes (one kernel body), and bit-equal from run to
+    run."""
     rng = np.random.RandomState(C * N + n_active)
     _, _, _, bias, q, k, v, wl = _bias_attention_case(rng, dev, C, N)
     act = np.zeros(C, np.int32)
@@ -629,14 +647,18 @@ def test_bias_attention_kernels_match_plain(dev, C, N, n_active):
     assert float((full - want).abs().max()) <= tol
     assert float((got[on] - want[on]).abs().max()) <= tol
     assert torch.equal(got[on], full[on])
+    assert torch.equal(BA.fused_bias_attention(bias, q, k, v, wl), full)
 
 
 def test_bias_attention_gradient_and_refusals(dev):
     """Row 7 carries the gradient of autograd of its plain version (the JAX
     custom VJP's rule) for every input; row 8 and the skip geometric bias
-    refuse an input that requires a gradient; a shape over the shared
-    memory of a block is refused with a ValueError before any launch, for
-    the two attention kernels (the largest N at these widths is 408)."""
+    refuse an input that requires a gradient; a shape the kernels do not
+    take is refused with a ValueError before any launch: for the bias
+    attention D over 64 or no multiple of 8, and a value width whose u rows
+    overflow the shared memory of a block (it takes any N); for the fused
+    skip attention a shape over the shared memory of a block (the largest N
+    at these widths is 408)."""
     rng = np.random.RandomState(5)
     C, N = 3, 29
     _, wg, bg, bias, q, k, v, wl = _bias_attention_case(rng, dev, C, N)
@@ -657,11 +679,19 @@ def test_bias_attention_gradient_and_refusals(dev):
     big = 412
     assert NA.smem_bytes(408, 64, 8) <= NA.MAX_SMEM < NA.smem_bytes(big, 64, 8)
     z = torch.zeros
+    for D in (72, 60):      # over the kernel's 64 columns; no multiple of 8
+        with pytest.raises(ValueError, match="D a multiple of 8 up to 64"):
+            BA.fused_bias_attention(z((1, 16, N, N), device=dev),
+                                    z((1, N, 16 * D), device=dev),
+                                    z((1, N, 16 * D), device=dev),
+                                    z((1, N, 128), device=dev),
+                                    z((16, 128, 8), device=dev))
     with pytest.raises(ValueError, match="shared memory"):
-        BA.fused_bias_attention(z((1, 16, big, big), device=dev),
-                                z((1, big, 1024), device=dev),
-                                z((1, big, 1024), device=dev),
-                                z((1, big, 128), device=dev), z((16, 128, 8), device=dev))
+        BA.fused_bias_attention(z((1, 2, 150, 150), device=dev),
+                                z((1, 150, 128), device=dev),
+                                z((1, 150, 128), device=dev),
+                                z((1, 150, 128), device=dev),
+                                z((2, 128, 512), device=dev))
     with pytest.raises(ValueError, match="shared memory"):
         NA.fused_nms_relation_attention_skip(
             z((1, 4, big, big), device=dev), z((1, big, 1024), device=dev),

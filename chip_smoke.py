@@ -12,8 +12,11 @@
 2. Holds each of the twelve kernels against its plain PyTorch version on
    the card, at the shapes the driven models give it (the geometric bias at
    its four launch shapes; the NMS at the
-   proposal shape and at the classic tail's C=80, Np=512; the fused skip
-   attention at N=100 and at the FPN tail's N=150; the skip geometric bias
+   proposal shape and at the classic tail's C=80, Np=512; the stem, bit
+   for bit as well; the fused attention at N=100 over every class and with
+   class skipping at N=100 and at the FPN tail's N=150, two runs and the
+   two entries bit-equal, timed beside the two-stage route (geometric
+   bias, then bias attention) at the same inputs; the skip geometric bias
    and the bias attention with and without class skipping at the FPN
    learned-NMS tail's C=80, N=150, 16 or 80 classes active, and over 80
    classes at the C4 tail's N=100, two runs bit-equal, with the bound of
@@ -363,30 +366,34 @@ def check_stem(torch, dev, rng):
     w4 = conv1_w4(w7).contiguous()
     scale = torch.tensor(rng.uniform(0.5, 2, 64), dtype=torch.float32, device=dev)
     bias = torch.tensor(rng.randn(64), dtype=torch.float32, device=dev)
-    got = K._launch(s2d, w4, scale, bias).float()
+    wf = K.stem_weight_fragments(w4)
+    got = K._launch(s2d, wf, scale, bias).float()
     want = K.stem_reference(s2d, w4, scale, bias).float()
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max())
-    # one bf16 ulp of the plain value (both sum exact bf16 products in f32,
-    # in different orders, then round once)
+    # one bf16 ulp of the plain value (its pre-activation is the exact sum of
+    # the bf16 products rounded once to f32; the kernel's is the tensor
+    # cores' f32 sum, and the exact one where BN brings the output near zero)
     ok = bool((diff <= want.abs() * 2.0 ** -7 + 1e-6).all())
-    ms = time_ms(torch, lambda: K._launch(s2d, w4, scale, bias))
+    same = torch.equal(got, want)
+    ms = time_ms(torch, lambda: K._launch(s2d, wf, scale, bias))
     plain_ms = time_ms(torch, lambda: K.stem_reference(s2d, w4, scale, bias))
     # yardstick: cuDNN 7x7/2 conv (BN folded into weight and bias) + ReLU on
     # the NCHW image the s2d input encodes
     img = s2d[0].reshape(2, 2, 3, Ho, Wo).permute(2, 3, 0, 4, 1).reshape(
         1, 3, 2 * Ho, 2 * Wo).to(torch.bfloat16)
-    wf = (w7 * scale[:, None, None, None]).to(torch.bfloat16)
+    wfold = (w7 * scale[:, None, None, None]).to(torch.bfloat16)
     bf = bias.to(torch.bfloat16)
-    lib = F.relu(F.conv2d(img, wf, bf, stride=2, padding=3)).float()
+    lib = F.relu(F.conv2d(img, wfold, bf, stride=2, padding=3)).float()
     lib_err = float((lib - want).abs().max())
-    library_ms = time_ms(torch, lambda: F.relu_(F.conv2d(img, wf, bf, stride=2,
+    library_ms = time_ms(torch, lambda: F.relu_(F.conv2d(img, wfold, bf, stride=2,
                                                          padding=3)))
     bms, bby = bound(12 * Ho * Wo * 4 + 64 * Ho * Wo * 2 + 192 * 64 * 2 + 512,
                      2 * 64 * 192 * Ho * Wo, BF16_PEAK)
     log(f"[kernel] stem_conv1_bn_relu [12,{Ho},{Wo}]: max abs err {err:.3e} "
-        f"(tol 1 bf16 ulp) {'OK' if ok else 'FAIL'}; library max abs diff "
+        f"(tol 1 bf16 ulp), bit-equal: {same}, {'OK' if ok else 'FAIL'}; "
+        f"library max abs diff "
         f"{lib_err:.3e}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
         f"library_ms {library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
     if not ok:
@@ -441,7 +448,11 @@ def sdpa_bias_ms(torch, bias, q, k, v, G, D):
 
 def check_attention(torch, dev, rng):
     """Row 9 at the flagship's N=100 (FIRST_N 100; the JSON line) and at the
-    FPN learned-NMS tail's N=150 (FIRST_N 150), 16 of 80 classes active."""
+    FPN learned-NMS tail's N=150 (FIRST_N 150), 16 of 80 classes active;
+    timed beside the two-stage route at the same inputs (row 3, then row
+    8)."""
+    from relation_tpu_torch.ops.kernels import bias_attention as BA
+    from relation_tpu_torch.ops.kernels import geom_bias as GB
     from relation_tpu_torch.ops.kernels import nms_attention as K
     C, G, D, Fd, E, n_active = 80, 16, 64, 128, 8, 16
     result = None
@@ -453,22 +464,31 @@ def check_attention(torch, dev, rng):
         args = (pos, q, k, v, wg, bg, wl, active)
         got = K.fused_nms_relation_attention_skip(*args)
         want = K.nms_relation_attention_reference(*args)
+        again = K.fused_nms_relation_attention_skip(*args)
+        full = K.fused_nms_relation_attention(*args[:7])
         torch.cuda.synchronize()
         on = active.bool()
         err = float((got[on] - want[on]).abs().max())
         tol = 1e-4 * max(1.0, float(want[on].abs().max()))
-        ok = err <= tol
+        same = torch.equal(got[on], again[on]) and torch.equal(got[on], full[on])
+        ok = err <= tol and same and bool(torch.isfinite(got[on]).all())
         ms = time_ms(torch, lambda: K.fused_nms_relation_attention_skip(*args))
         plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
         idx = torch.nonzero(on).flatten()
         library_ms = sdpa_ms(torch, pos[idx], q[idx], k[idx], v[idx], wg, bg,
                              N, G, D, Fd)
+        two_ms = time_ms(torch, lambda: BA.fused_bias_attention_skip(
+            GB.fused_geometric_bias_skip(pos, wg, bg, active), q, k, v, wl,
+            active))
         bms, bby, simt = attention_bound(n_active, C, N, G, D, Fd, E)
         log(f"[kernel] nms_attention_skip C={C} N={N} active={n_active}: max abs "
-            f"err on active rows {err:.3e} (tol {tol:.1e}) {'OK' if ok else 'FAIL'}; "
-            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
-            f"{library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby}; all flops at the "
-            f"f32 rate: {simt * 1e3:.2f})")
+            f"err on active rows {err:.3e} (tol {tol:.1e}), two runs and the "
+            f"full entry bit-equal on active rows: {same}, "
+            f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
+            f"two-stage_ms(row 3 + row 8) {two_ms:.4f} bound_us "
+            f"{bms * 1e3:.2f} ({bby}; all flops at the f32 rate: "
+            f"{simt * 1e3:.2f})")
         if not ok:
             fail(f"fused_nms_relation_attention_skip N={N} disagrees with its "
                  "plain version")
@@ -647,24 +667,33 @@ def check_bias_attention_skip(torch, dev, rng):
 
 
 def check_attention_full(torch, dev, rng):
+    """Row 6 over all 80 classes at the flagship's N=100, timed beside the
+    two-stage route at the same inputs (row 1, then row 7)."""
+    from relation_tpu_torch.ops.kernels import bias_attention as BA
+    from relation_tpu_torch.ops.kernels import geom_bias as GB
     from relation_tpu_torch.ops.kernels import nms_attention as K
     C, N, G, D, Fd, E = 80, 100, 16, 64, 128, 8
     args = attention_inputs(torch, dev, rng)
+    pos, q, k, v, wg, bg, wl = args
     got = K.fused_nms_relation_attention(*args)
     want = K.nms_relation_attention_reference(*args)
+    again = K.fused_nms_relation_attention(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     tol = 1e-4 * max(1.0, float(want.abs().max()))
-    ok = err <= tol and bool(torch.isfinite(got).all())
+    same = torch.equal(got, again)
+    ok = err <= tol and same and bool(torch.isfinite(got).all())
     ms = time_ms(torch, lambda: K.fused_nms_relation_attention(*args))
     plain_ms = time_ms(torch, lambda: K.nms_relation_attention_reference(*args))
     library_ms = sdpa_ms(torch, *args[:6], N, G, D, Fd)
+    two_ms = time_ms(torch, lambda: BA.fused_bias_attention(
+        GB.fused_geometric_bias(pos, wg, bg), q, k, v, wl))
     bms, bby, simt = attention_bound(C, C, N, G, D, Fd, E)
     log(f"[kernel] nms_attention_full C={C} N={N}: max abs err {err:.3e} "
-        f"(tol {tol:.1e}) {'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms(SDPA core) {library_ms:.4f} "
-        f"bound_us {bms * 1e3:.2f} ({bby}; all flops at the f32 rate: "
-        f"{simt * 1e3:.2f})")
+        f"(tol {tol:.1e}), two runs bit-equal: {same}, {'OK' if ok else 'FAIL'}; "
+        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(SDPA core) "
+        f"{library_ms:.4f} two-stage_ms(row 1 + row 7) {two_ms:.4f} bound_us "
+        f"{bms * 1e3:.2f} ({bby}; all flops at the f32 rate: {simt * 1e3:.2f})")
     if not ok:
         fail("fused_nms_relation_attention disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,

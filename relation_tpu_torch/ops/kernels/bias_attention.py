@@ -17,34 +17,12 @@ import ctypes
 import torch
 
 from relation_tpu_torch.ops.kernels import _build
-from relation_tpu_torch.ops.kernels.nms_attention import MAX_SMEM
+from relation_tpu_torch.ops.kernels.nms_attention import MAX_SMEM, smem_bytes
 
 launches = 0          # kernel launches over every class (CUDA only)
 skip_launches = 0     # kernel launches with class skipping (CUDA only)
 launch_shapes: dict[str, int] = {}  # launches over every class, by "C= N="
 MAX_D = 64            # q/k columns of the kernel's k8 steps
-_NT_BUCKETS = (2, 4, 8, 13, 19)   # n8 tiles of a key chunk, by instantiation
-_CHUNK_KEYS = 152     # keys a chunk holds above N = 152 (19 n8 tiles)
-_MAX_WARPS = 10       # query row tiles of a task (160 rows)
-
-
-def smem_bytes(N: int, D: int, E: int, C: int, F: int = 0) -> int:
-    """The larger dynamic shared memory of the two kernels of
-    csrc/bias_attention.cu: the attention's q rows of a task, k rows and
-    two buffers of u rows of a key chunk, the chunk's bias tile and the list
-    of active classes; the value projection's 64 columns of Wl seen as an
-    [F, G*E] matrix (F padded to 8, rows 4 floats longer) and its 64 rows of
-    v."""
-    keys = min(N, _CHUNK_KEYS)
-    nt = next(b for b in _NT_BUCKETS if 8 * b >= keys)
-    rows = 16 * min(-(-N // 16), _MAX_WARPS)
-    ds = D + (8 - D % 32) % 32
-    us = -(-E // 8) * 8 + 4
-    floats = (rows * ds + -(-min(rows, N) * keys // 4) * 4 + 8 * nt * ds
-              + 2 * 8 * nt * us + C)
-    fp = -(-F // 8) * 8
-    proj = fp * 68 + 64 * (fp + (8 - fp % 32) % 32)
-    return 4 * max(floats, proj)
 
 
 def check_shape(name: str, C: int, N: int, D: int, F: int, E: int) -> None:

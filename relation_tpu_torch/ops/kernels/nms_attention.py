@@ -2,7 +2,9 @@
 skipping: CUDA kernel and plain version. Port of
 relation_tpu/ops/pallas/nms_attention.py::fused_nms_relation_attention_skip
 (inference) and ::fused_nms_relation_attention (every class, differentiable:
-the training form); both run the one kernel body of csrc/nms_attention.cu.
+the training form); both run the one kernel body of csrc/nms_attention.cu,
+whose value projection and attention body (csrc/attention_tc.cuh) it shares
+with the bias attention of ops/kernels/bias_attention.py.
 
     bias   = log(max(sincos_emb(100 * pos) @ Wg + bg, 1e-6))     [C, G, N, N]
     attn_g = softmax(q_g k_g^T / sqrt(D) + bias_g)
@@ -22,33 +24,45 @@ launches = 0          # kernel launches of the skip attention (CUDA only)
 full_launches = 0     # kernel launches of the unskipped attention (CUDA only)
 launch_shapes: dict[str, int] = {}  # skip-attention launches by "C= N="
 MAX_SMEM = 232_448    # shared memory a Hopper block may use, bytes
-_WHOLE_N = 128        # up to this N a block takes every query row, above
-_ROW_TILE = 64        # at most this many (csrc/attention_rows.cuh)
+_NT_BUCKETS = (2, 4, 8, 13, 19)   # n8 tiles of a key chunk, by instantiation
+_CHUNK_KEYS = 152     # keys a chunk holds above N = 152 (19 n8 tiles)
+_MAX_WARPS = 10       # query row tiles of a task (160 rows)
 
 
-def smem_bytes(N: int, D: int, E: int, extra_floats: int = 0) -> int:
-    """Shared memory of one block of the attention kernels
-    (csrc/attention_rows.cuh: q^T of a tile of query rows, k^T, the
-    [rows, N] score tile, u_g = v @ Wl_g, the row sums), plus
-    ``extra_floats``."""
-    def pad4(x):
-        return (x + 3) // 4 * 4
-    tiles = 1 if N <= _WHOLE_N else -(-N // _ROW_TILE)
-    tr, np_ = pad4(-(-N // tiles)), pad4(N)
-    return 4 * (D * tr + D * np_ + tr * np_ + E * np_ + tr + extra_floats)
+def smem_bytes(N: int, D: int, E: int, C: int, F: int = 0) -> int:
+    """The larger dynamic shared memory of the two kernels of a learned-NMS
+    attention call (csrc/attention_tc.cuh, the layout of rows 6-9): the
+    attention's q rows of a task, k rows and two buffers of u rows of a key
+    chunk (q and k padded to a multiple of 8 columns), the chunk's bias tile
+    and the list of active classes; the value projection's 64 columns of Wl
+    seen as an [F, G*E] matrix (F padded to 8, rows 4 floats longer) and its
+    64 rows of v."""
+    keys = min(N, _CHUNK_KEYS)
+    nt = next(b for b in _NT_BUCKETS if 8 * b >= keys)
+    rows = 16 * min(-(-N // 16), _MAX_WARPS)
+    dp = -(-D // 8) * 8
+    ds = dp + (8 - dp % 32) % 32
+    us = -(-E // 8) * 8 + 4
+    floats = (rows * ds + -(-min(rows, N) * keys // 4) * 4 + 8 * nt * ds
+              + 2 * 8 * nt * us + C)
+    fp = -(-F // 8) * 8
+    proj = fp * 68 + 64 * (fp + (8 - fp % 32) % 32)
+    return 4 * max(floats, proj)
 
 
-def check_attention_shape(name: str, N: int, D: int, F: int, E: int,
-                          extra_floats: int = 0) -> None:
-    """Raise ValueError, before any launch, for a shape the attention
-    kernels do not take."""
+def check_attention_shape(name: str, C: int, N: int, D: int, F: int,
+                          E: int) -> None:
+    """Raise ValueError, before any launch, for a shape the fused attention
+    kernel does not take: D or F no multiple of 4, or a layout over the
+    shared memory of a block."""
     if D % 4 or F % 4:
         raise ValueError(f"{name}: needs D and F multiples of 4 "
                          f"(got D={D}, F={F})")
-    need = smem_bytes(N, D, E, extra_floats)
+    need = smem_bytes(N, D, E, C, F)
     if need > MAX_SMEM:
-        raise ValueError(f"{name}: N={N} needs {need} bytes of shared memory "
-                         f"a block, over the {MAX_SMEM} a Hopper block has")
+        raise ValueError(f"{name}: N={N}, D={D}, F={F}, E={E} need {need} "
+                         f"bytes of shared memory a block, over the {MAX_SMEM} "
+                         "a Hopper block has")
 
 
 def nms_relation_attention_reference(pos_t, q, k, v, wg, bg, wl, active=None,
@@ -87,9 +101,8 @@ def _launch(pos_t, q, k, v, wg, bg, wl, active, scale, name):
             or wl.shape != (G, F, E)
             or (active is not None and active.shape != (C,))):
         raise ValueError(f"{name}: inconsistent shapes")
-    cs = max(c for c in (8, 4, 2, 1) if G % c == 0)   # heads a cluster
-    check_attention_shape(name, N, D, F, E, extra_floats=64 * cs)
-    # q, k and v are read as float4s: 16-byte aligned storage
+    check_attention_shape(name, C, N, D, F, E)
+    # q, k and v are read in 16-byte pieces: 16-byte aligned storage
     tensors = [t.contiguous() for t in (pos_t, q, k, v, wg, bg, wl)]
     tensors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
     for t in tensors:
@@ -122,9 +135,11 @@ def fused_nms_relation_attention_skip(pos_t, q, k, v, wg, bg, wl, active,
     """Single fused kernel for the active classes (``active`` [C] int32).
     Inactive classes' rows are left unwritten on the card, as on the TPU: the
     learned-NMS head masks them with where(). CUDA tensors launch the kernel
-    (one block per class, head and tile of query rows, every row up to
-    N=128 and at most 64 above, about 91 KB of shared memory at N=150; a
-    shape that does not fit is refused with a ValueError before the
+    (a persistent grid of clusters of heads over (active class, head group,
+    up to 160 query rows), the bias made on the tensor cores into each
+    head's tile, keys in chunks of up to 152 joined by an online softmax:
+    any N, D and F multiples of 4, about 200 KB of shared memory a block at
+    N=150; a shape that does not fit is refused with a ValueError before the
     launch); CPU tensors take the plain version. Inference only: on the card
     an input that requires a gradient is refused, never answered
     detached."""

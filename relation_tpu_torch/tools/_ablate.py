@@ -26,17 +26,20 @@ def print_card() -> None:
     print(smi.stdout.strip(), flush=True)
 
 
-def build_variants(name: str, variants: Variants) -> dict[str, ctypes.CDLL]:
-    """{variant: library} of csrc/<name>.cu, each variant built from copies of
-    the sources (the .cu and the headers beside it) into
-    _build/ablate_<name>/<variant>/ with its substitutions made. Raises if a
-    text is not in its file, or if nvcc fails. Prints the ptxas register
-    report of the unchanged variant ``full``."""
-    root = _build.BUILD_DIR / f"ablate_{name}"
+def build_variants(name: str, variants: Variants, csrc=None,
+                   tag: str = "ablate") -> dict[str, ctypes.CDLL]:
+    """{variant: library} of <csrc>/<name>.cu (csrc: this checkout's sources
+    by default), each variant built from copies of the sources (the .cu and
+    the headers beside it) into _build/<tag>_<name>/<variant>/ with its
+    substitutions made. Raises if a text is not in its file, or if nvcc
+    fails. Prints the ptxas register report of the unchanged variant
+    ``full``."""
+    root = _build.BUILD_DIR / f"{tag}_{name}"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
     for var, subs in variants.items():
-        files = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu*")}
+        files = {p.name: p.read_text()
+                 for p in (csrc or _build.CSRC).glob("*.cu*")}
         for fname, a, b in subs:
             if a not in files[fname]:
                 raise RuntimeError(f"{name} {var}: {a!r} is not in {fname}")

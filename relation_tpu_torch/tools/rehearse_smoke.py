@@ -58,6 +58,7 @@ def install_stubs() -> None:
                                                        wl, active, s))
     bias_attention._launch = lambda bias, q, k, v, wl, active, name: (
         bias_attention.bias_attention_reference(bias, q, k, v, wl, active))
+    stem.stem_weight_fragments = lambda w4: w4
     stem._launch = stem.stem_reference
     res4._launch = res4.bottleneck_stack_reference
 

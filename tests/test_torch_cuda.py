@@ -85,7 +85,8 @@ def test_nms_kernel_matches_plain_exactly(dev, thresh, max_keep, block, integer)
     assert float(want.sum()) > 0
 
 
-@pytest.mark.parametrize("B,Ho,Wo", [(2, 37, 45), (1, 3, 5), (1, 64, 130)])
+@pytest.mark.parametrize("B,Ho,Wo", [(2, 37, 45), (1, 3, 5), (1, 64, 130),
+                                    (1, 304, 512)])
 def test_stem_kernel_matches_plain(dev, B, Ho, Wo):
     rng = np.random.RandomState(Ho)
     s2d = _tens(rng.randn(B, 12, Ho, Wo) * 40, dev)
@@ -97,9 +98,13 @@ def test_stem_kernel_matches_plain(dev, B, Ho, Wo):
     assert ST.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (B, 64, Ho, Wo)
     want = ST.stem_reference(s2d, w4, scale, bias).float()
-    # one bf16 ulp: both sum exact bf16 products in f32, in other orders
+    # one bf16 ulp of the plain value
     diff = (got.float() - want).abs()
     assert bool((diff <= want.abs() * 2.0 ** -7 + 1e-4).all())
+    # and bit for bit: the kernel recomputes exactly every output its
+    # tensor-core sums could round differently (the flagship's 608x1024
+    # image among the shapes)
+    assert torch.equal(got.float(), want)
 
 
 @pytest.mark.parametrize("N,G,D,F,E", [(8, 16, 64, 128, 8), (37, 16, 64, 128, 8),
@@ -657,8 +662,8 @@ def test_bias_attention_gradient_and_refusals(dev):
     take is refused with a ValueError before any launch: for the bias
     attention D over 64 or no multiple of 8, and a value width whose u rows
     overflow the shared memory of a block (it takes any N); for the fused
-    skip attention a shape over the shared memory of a block (the largest N
-    at these widths is 408)."""
+    skip attention D no multiple of 4, and a q/k width whose rows overflow
+    the shared memory of a block (it takes any N)."""
     rng = np.random.RandomState(5)
     C, N = 3, 29
     _, wg, bg, bias, q, k, v, wl = _bias_attention_case(rng, dev, C, N)
@@ -676,8 +681,8 @@ def test_bias_attention_gradient_and_refusals(dev):
     with pytest.raises(RuntimeError, match="no backward"):
         GB.fused_geometric_bias_skip(torch.zeros((C, 4, N, N), device=dev),
                                      wg.clone().requires_grad_(True), bg, active)
-    big = 412
-    assert NA.smem_bytes(408, 64, 8) <= NA.MAX_SMEM < NA.smem_bytes(big, 64, 8)
+    assert NA.smem_bytes(150, 72, 8, 1, 128) <= NA.MAX_SMEM \
+        < NA.smem_bytes(150, 256, 8, 1, 128)
     z = torch.zeros
     for D in (72, 60):      # over the kernel's 64 columns; no multiple of 8
         with pytest.raises(ValueError, match="D a multiple of 8 up to 64"):
@@ -692,12 +697,14 @@ def test_bias_attention_gradient_and_refusals(dev):
                                 z((1, 150, 128), device=dev),
                                 z((1, 150, 128), device=dev),
                                 z((2, 128, 512), device=dev))
-    with pytest.raises(ValueError, match="shared memory"):
-        NA.fused_nms_relation_attention_skip(
-            z((1, 4, big, big), device=dev), z((1, big, 1024), device=dev),
-            z((1, big, 1024), device=dev), z((1, big, 128), device=dev),
-            z((64, 16), device=dev), z(16, device=dev), z((16, 128, 8), device=dev),
-            torch.ones(1, dtype=torch.int32, device=dev))
+    for D, match in ((6, "multiples of 4"), (256, "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            NA.fused_nms_relation_attention_skip(
+                z((1, 4, 150, 150), device=dev), z((1, 150, 16 * D), device=dev),
+                z((1, 150, 16 * D), device=dev), z((1, 150, 128), device=dev),
+                z((64, 16), device=dev), z(16, device=dev),
+                z((16, 128, 8), device=dev),
+                torch.ones(1, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("N", [45, 150])
@@ -718,3 +725,38 @@ def test_attention_kernels_take_values_wider_than_two_heads(dev, N):
              (NA.fused_nms_relation_attention_skip(pos, q, k, v, wg, bg, wl, active), on)]
     for got, rows in pairs:
         assert float((got[rows] - want[rows]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("C,N,G,D,F,E,n_active", [
+    (80, 100, 16, 64, 128, 8, 16), (80, 150, 16, 64, 128, 8, 16),
+    (3, 153, 16, 64, 128, 8, 2), (3, 408, 16, 64, 128, 8, 2),
+    (2, 412, 16, 64, 128, 8, 1), (2, 500, 16, 64, 128, 8, 2),
+    (4, 45, 8, 12, 16, 8, 2), (3, 70, 4, 72, 64, 8, 2), (5, 29, 32, 20, 36, 5, 3)])
+def test_fused_attention_kernels_bit_equal_and_any_n(dev, C, N, G, D, F, E,
+                                                     n_active):
+    """Rows 6 and 9 at the flagship's N=100 and the FPN tail's N=150 (16 of
+    80 classes), above one key chunk of 152 (153; 408, the largest N the
+    earlier design took at these widths; 412 and 500 beyond it), at D no
+    multiple of 8 (12, 20) or over 64 (72), with clusters of 8, 4 and 16
+    heads (G=8, 4, 32): active rows within 1e-4 of the largest element of
+    the plain version, the skip entry's active rows equal to the full
+    entry's, and both bit-equal from run to run."""
+    rng = np.random.RandomState(C * N + D)
+    pos, wg, bg, _, q, k, v, wl = _bias_attention_case(rng, dev, C, N, G, D, F, E)
+    act = np.zeros(C, np.int32)
+    act[rng.choice(C, n_active, replace=False)] = 1
+    active = torch.tensor(act, device=dev)
+    args = (pos, q, k, v, wg, bg, wl)
+    s0, f0 = NA.launches, NA.full_launches
+    got = NA.fused_nms_relation_attention_skip(*args, active)
+    full = NA.fused_nms_relation_attention(*args)
+    assert (NA.launches, NA.full_launches) == (s0 + 1, f0 + 1)
+    on = active.bool()
+    want = NA.nms_relation_attention_reference(pos[on], q[on], k[on], v[on],
+                                               wg, bg, wl)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got[on] - want).abs().max()) <= tol
+    assert torch.equal(got[on], full[on])
+    assert torch.equal(NA.fused_nms_relation_attention_skip(*args, active)[on],
+                       got[on])
+    assert torch.equal(NA.fused_nms_relation_attention(*args), full)

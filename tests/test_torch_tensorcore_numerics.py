@@ -1,7 +1,11 @@
 """The arithmetic of the tensor-core kernels, emulated in plain PyTorch on the
 CPU and held against the plain f32 versions at the chip check's tolerance:
-the d_W/d_b product of csrc/geom_bias_bwd.cu and the scores and attn @ u of
-csrc/bias_attention.cu, both mma.sync m16n8k8 with TF32 operands.
+the d_W/d_b product of csrc/geom_bias_bwd.cu, the scores and attn @ u of
+csrc/bias_attention.cu and the bias product of csrc/nms_attention.cu (rows
+6/9, the same attention body after it), all mma.sync m16n8k8 with TF32
+operands; and the weight layout of csrc/stem.cu (bf16 mma.sync m16n8k16
+A fragments, the GEMM depth padded to 16 channels a tap) against the plain
+and JAX stems.
 
 TF32 rounding is cvt.rna: the low 13 of f32's 23 mantissa bits dropped,
 to nearest, ties away from zero. A product of two TF32 values is exact in
@@ -20,13 +24,19 @@ pass does not keep it: the second case is asserted as a failure of the
 band, which is why the kernels pay three products a step.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from relation_tpu.ops.pallas import nms_attention as JNA
+from relation_tpu.ops.pallas import stem as JST
+from relation_tpu_torch.models.backbone import conv1_w4
 from relation_tpu_torch.ops.embeddings import (extract_multi_position_matrix_t,
                                                extract_position_matrix_t)
 from relation_tpu_torch.ops.kernels import geom_bias as GB
+from relation_tpu_torch.ops.kernels import nms_attention as NA
+from relation_tpu_torch.ops.kernels import stem as ST
 from relation_tpu_torch.ops.kernels.bias_attention import bias_attention_reference
 
 TOL = 1e-4            # of the largest element: chip_smoke.py and the card tests
@@ -238,3 +248,139 @@ def test_bias_attention_split_tf32_holds_the_band(N):
     for pqk, ppv in ((1, 1), (3, 1)):
         single = err(pqk, ppv)
         assert single > tol, (pqk, ppv, single, tol)
+
+
+# --------------------------------------------------------------------------
+# rows 6/9: the fused attention's bias product on the tensor cores
+# --------------------------------------------------------------------------
+
+def fused_bias_emulated(pos, wg, bg, passes=3):
+    """The bias of csrc/nms_attention.cu: trig [pairs, 64] x Wg [64, G] over
+    k8 steps in feature order (step s holds features 8 s .. 8 s + 7: field
+    s // 2, sines for even s, cosines for odd), each step's split products
+    lo hi, hi lo, hi hi into one accumulator (mma3); then + bg and
+    log(max(., 1e-6)). The heads of a cluster are columns of one product and
+    do not mix, so the cluster size does not enter."""
+    trig = GB._trig(pos, 100.0)                                  # [C, 64, N, M]
+    C, _, N, M = trig.shape
+    G = wg.shape[1]
+    a = trig.permute(0, 2, 3, 1).reshape(-1, 64)
+    acc = torch.zeros(a.shape[0], G)
+    for k in range(0, 64, 8):
+        acc = mma_add(acc, a[:, k:k + 8], wg[k:k + 8], passes)
+    acc = acc.reshape(C, N, M, G).permute(0, 3, 1, 2)
+    return torch.log(torch.clamp_min(acc + bg[None, :, None, None], 1e-6))
+
+
+def _fused_inputs(C, N, seed, G=16, D=64, Fd=128, E=8):
+    """chip_smoke.py's inputs of rows 6/9 (attention_inputs), C classes."""
+    rng = np.random.RandomState(seed)
+
+    def tens(x):
+        return torch.tensor(x, dtype=torch.float32)
+    pos = extract_multi_position_matrix_t(torch.stack(
+        [random_boxes(rng, N) for _ in range(C)], 1)).contiguous()
+    q, k = tens(rng.randn(C, N, G * D) * 0.5), tens(rng.randn(C, N, G * D) * 0.5)
+    v = tens(rng.randn(C, N, Fd))
+    wg, bg = tens(rng.randn(64, G) * 0.1), tens(rng.randn(G) * 0.05)
+    wl = tens(rng.randn(G, Fd, E) * 0.1)
+    return pos, q, k, v, wg, bg, wl
+
+
+# N=100 (the C4 learned-NMS head) and N=150 (the FPN head), 2 of 3 classes
+# active: one key chunk, the shapes the models give rows 6/9
+@pytest.mark.parametrize("N", [100, 150])
+def test_fused_attention_split_tf32_holds_the_band(N):
+    pos, q, k, v, wg, bg, wl = _fused_inputs(3, N, seed=N + 1)
+    active = torch.tensor([1, 0, 1], dtype=torch.int32)
+    on = active.bool()
+    bias = fused_bias_emulated(pos[on], wg, bg)
+    got = bias_attention_emulated(bias, q[on], k[on], v[on], wl, 3, 3)
+    want = NA.nms_relation_attention_reference(pos, q, k, v, wg, bg, wl,
+                                               active)[on]
+    tol = TOL * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    idx = np.flatnonzero(active.numpy())
+    jx = [jnp.asarray(t.numpy()[idx]) for t in (pos, q, k, v)]
+    want_jax = torch.tensor(np.asarray(JNA.nms_relation_attention_reference(
+        *jx, jnp.asarray(wg.numpy()), jnp.asarray(bg.numpy()),
+        jnp.asarray(wl.numpy()))))
+    assert float((got - want_jax).abs().max()) <= tol
+
+
+# --------------------------------------------------------------------------
+# row 5: the stem's weight as mma.sync m16n8k16 A fragments, K padded
+# --------------------------------------------------------------------------
+
+# element e of a lane's A fragment (a0..a7, PTX ISA "Matrix Fragments for
+# mma.m16n8k16" with .bf16): (row offset from gid, column offset from 2 tig)
+A_FRAG = [(0, 0), (0, 1), (8, 0), (8, 1), (0, 8), (0, 9), (8, 8), (8, 9)]
+
+
+def unpack_fragments(wf):
+    """[4, 16, 32, 8] fragments -> the padded [64, 256] weight (row o,
+    column tap * 16 + channel) and how many fragment slots hit each entry."""
+    w = torch.zeros(64, 256, dtype=torch.float64)
+    hits = torch.zeros(64, 256, dtype=torch.int64)
+    for mt in range(4):
+        for s in range(16):
+            for lane in range(32):
+                gid, tig = lane // 4, lane % 4
+                for e, (dr, dc) in enumerate(A_FRAG):
+                    o, col = 16 * mt + gid + dr, 16 * s + 2 * tig + dc
+                    w[o, col] = float(wf[mt, s, lane, e])
+                    hits[o, col] += 1
+    return w, hits
+
+
+def _stem_case(B, Ho, Wo, seed):
+    rng = np.random.RandomState(seed)
+    s2d = torch.tensor(rng.randn(B, 12, Ho, Wo) * 40, dtype=torch.float32)
+    w4 = conv1_w4(torch.tensor(rng.randn(64, 3, 7, 7) * (1 / 147) ** 0.5,
+                               dtype=torch.float32))
+    scale = torch.tensor(rng.uniform(0.5, 2, 64), dtype=torch.float32)
+    bias = torch.tensor(rng.randn(64), dtype=torch.float32)
+    return s2d, w4, scale, bias
+
+
+def test_stem_weight_fragments_are_the_padded_weight():
+    """Every entry of the padded [64, 16 taps x 16 channels] weight is in
+    exactly one fragment slot: channels 0..11 of a tap are the bf16 w4 row
+    tap * 12 + channel, channels 12..15 are zeros (the padded K)."""
+    _, w4, _, _ = _stem_case(1, 3, 5, seed=0)
+    w, hits = unpack_fragments(ST.stem_weight_fragments(w4))
+    assert bool((hits == 1).all())
+    w = w.reshape(64, 16, 16)
+    want = w4.to(torch.bfloat16).double().reshape(16, 12, 64).permute(2, 0, 1)
+    assert torch.equal(w[:, :, :12], want)
+    assert bool((w[:, :, 12:] == 0).all())
+
+
+# (2, 37, 45) and (1, 64, 130): the card tests' ragged shapes, cut in rows
+@pytest.mark.parametrize("B,Ho,Wo", [(2, 11, 45), (1, 6, 130)])
+def test_stem_padded_k_gemm_matches_the_references(B, Ho, Wo):
+    """The kernel's GEMM from the fragment layout, K padded to 16 channels a
+    tap: its exact (f64) pre-activation equals the unpadded product of
+    stem_reference's operands exactly; rounded once to f32 (the kernel's
+    exact path) its output equals stem_reference's exactly, and is within
+    one bf16 ulp of JAX's stem_reference (an f32 sum in another order)."""
+    s2d, w4, scale, bias = _stem_case(B, Ho, Wo, seed=Ho)
+    w, _ = unpack_fragments(ST.stem_weight_fragments(w4))        # [64, 256]
+    sp = torch.nn.functional.pad(s2d.to(torch.bfloat16).double(), (2, 1, 2, 1))
+    taps = torch.stack([sp[:, :, dh:dh + Ho, dw:dw + Wo]
+                        for dh in range(4) for dw in range(4)], 1)  # [B,16,12,..]
+    padded = torch.nn.functional.pad(taps, (0, 0, 0, 0, 0, 4))     # 16 channels
+    acc = torch.einsum("ok,bkn->bon", w, padded.reshape(B, 256, Ho * Wo))
+    plain = torch.einsum("ko,bkn->bon", w4.to(torch.bfloat16).double(),
+                         taps.reshape(B, 192, Ho * Wo))
+    assert torch.equal(acc, plain)
+    y = torch.relu(acc.float() * scale[None, :, None] + bias[None, :, None])
+    got = y.to(torch.bfloat16).float().reshape(B, 64, Ho, Wo)
+    want = ST.stem_reference(s2d, w4, scale, bias).float()
+    want_jax = torch.stack([torch.tensor(np.asarray(JST.stem_reference(
+        jnp.asarray(s2d[b].numpy()), jnp.asarray(w4.numpy()),
+        jnp.asarray(scale.numpy()), jnp.asarray(bias.numpy())).astype(
+            jnp.float32))) for b in range(B)])
+    assert torch.equal(got, want)
+    diff = (got - want_jax).abs()
+    assert bool((diff <= want_jax.abs() * 2.0 ** -7 + 1e-4).all())

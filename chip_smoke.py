@@ -12,7 +12,9 @@
 2. Holds each of the twelve kernels against its plain PyTorch version on
    the card, at the shapes the driven models give it (the geometric bias at
    its four launch shapes; the NMS at the
-   proposal shape and at the classic tail's C=80, Np=512; the stem, bit
+   proposal shape and at the classic tail's C=80, Np=512, one kernel on the
+   card a call (counted in one torch.profiler trace taken before the
+   checks) that allocates its keep mask and nothing else; the stem, bit
    for bit as well; the fused attention at N=100 over every class and with
    class skipping at N=100 and at the FPN tail's N=150, two runs and the
    two entries bit-equal, timed beside the two-stage route (geometric
@@ -310,7 +312,76 @@ def check_geom_bias_bwd(torch, dev, rng):
     return result  # the larger (learned-NMS) shape goes into the JSON line
 
 
-def check_nms(torch, dev, rng):
+def nms_tests(keep, valid, block, max_keep, T=256):
+    """(IoU tests the one-launch kernel makes on this data, modelled from its
+    code on the plain keep mask; the chunk at which it stops): per chunk it
+    visits (T boxes, stopping at the first ``block`` boundary with
+    ``max_keep`` kept; a chunk with no valid box is passed over), each valid
+    box against every box kept before the chunk, and every item of the
+    chunk's upper triangle (T/32 x (T/32 + 1) / 2 items of 32 x 32 tests,
+    invalid rows and columns included)."""
+    n_kept, tests, Np = 0, 0, keep.shape[0]
+    h = T // 32
+    for lo in range(0, Np, T):
+        if lo % block == 0 and n_kept >= max_keep:
+            return tests, lo
+        v = valid[lo:lo + T] > 0
+        if v.any():
+            tests += int(v.sum()) * n_kept + h * (h + 1) // 2 * 32 * 32
+        n_kept += int(keep[lo:lo + T].sum())
+    return tests, Np
+
+
+def nms_kernels_a_call(torch, dev) -> dict:
+    """{"C= Np=": names of the CUDA kernels and copies one nms_keep_sorted
+    call puts on the card} at the proposals' shape and the classic tail's,
+    from one torch.profiler trace taken before any kernel check (seeded
+    boxes of their own; the count does not depend on the data). A fill of a
+    one-element tensor stands before, between and after the calls in the
+    trace. Later in the process, after the other kernel checks, the profiler
+    on the H100 has recorded no device activity in a session at all, five
+    sessions in a row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from relation_tpu_torch.ops.kernels import nms_kernel as K
+    rng = np.random.RandomState(10)
+    calls = {}
+    for C, n, np_pad, max_keep, thresh in ((1, 6000, 6144, 300, 0.7),
+                                           (80, 300, 512, 100, 0.3)):
+        bT = np.zeros((C, 4, np_pad), np.float32)
+        valid = np.zeros((C, np_pad), np.float32)
+        for c in range(C):
+            bT[c, :, :n] = random_boxes(rng, n).T
+        valid[:, :n] = 1.0
+        args = (torch.tensor(bT, device=dev), torch.tensor(valid, device=dev),
+                thresh, 256, max_keep)
+        K.nms_keep_sorted(*args)      # built and set up before the trace
+        calls[f"C={C} Np={np_pad}"] = args
+    mark = torch.empty(1, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args in calls.values():
+            mark.fill_(1.0)
+            K.nms_keep_sorted(*args)
+        mark.fill_(1.0)
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    groups, cur = [], None
+    for _, name in events:
+        if "FillFunctor" in name:
+            if cur is not None:
+                groups.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(name)
+    if len(groups) != len(calls):
+        fail(f"torch.profiler's trace of the NMS calls is incomplete: "
+             f"{len(events)} device events")
+    return dict(zip(calls, groups))
+
+
+def check_nms(torch, dev, rng, ran):
     from relation_tpu_torch.ops.kernels import nms_kernel as K
     n, np_pad, block, max_keep, thresh = 6000, 6144, 256, 300, 0.7
     boxes = random_boxes(rng, n, clusters=25)
@@ -324,33 +395,46 @@ def check_nms(torch, dev, rng):
     v_t = torch.tensor(valid, device=dev)
 
     def kernel():
-        return K.launch_sweep(v_t, K.launch_mask(bT_t, thresh), block, max_keep)
+        return K.nms_keep_sorted(bT_t, v_t, thresh, block, max_keep)
+    kernel()
+    torch.cuda.synchronize()
+    # one kernel on the card a call (``ran``: the profiler's trace), and no
+    # device memory but the keep mask
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     got = kernel()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated(dev) - base
+    calls = len(ran)
     want = K.nms_keep_sorted_reference(bT_t, v_t, thresh, block, max_keep)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     keep = want[0].cpu().numpy() > 0.5
     kept_idx = np.nonzero(keep)[0]
-    ok = err == 0.0 and len(kept_idx) >= max_keep
+    mask_bytes = -(-np_pad * 4 // 512) * 512      # the allocator's 512-byte unit
+    ok = (err == 0.0 and len(kept_idx) >= max_keep and calls == 1
+          and "nms_kernel" in ran[0] and alloc <= mask_bytes)
     ms = time_ms(torch, kernel)
-    mask = K.launch_mask(bT_t, thresh)
-    mask_ms = time_ms(torch, lambda: K.launch_mask(bT_t, thresh))
-    sweep_ms = time_ms(torch, lambda: K.launch_sweep(v_t, mask, block, max_keep))
     plain_ms = time_ms(torch, lambda: K.nms_keep_sorted_reference(
         bT_t, v_t, thresh, block, max_keep), inner=1)
-    # work this data needs: the sweep stops at the block boundary after the
+    # work this data needs: the walk stops at the block boundary after the
     # max_keep-th kept box; each kept box is tested against the later boxes
-    stop = min(np_pad, -(-(int(kept_idx[max_keep - 1]) + 1) // block) * block)
+    tests, stop = nms_tests(keep, valid[0], block, max_keep)
     pairs = float(sum(stop - i - 1 for i in kept_idx if i < stop))
     bms, bby = bound(np_pad * (16 + 4 + 4), IOU_FLOPS * pairs, F32_PEAK)
     log(f"[kernel] nms_keep_sorted C=1 Np={np_pad} t={thresh} max_keep={max_keep}: "
         f"keep-mask mismatches {err:.0f} (tol 0) {'OK' if ok else 'FAIL'}; "
-        f"kept {int(keep.sum())} by box {stop}; kernel_ms {ms:.4f} "
-        f"(mask pass {mask_ms:.4f}, sweep {sweep_ms:.4f}) plain_ms {plain_ms:.4f} "
-        f"library_ms n/a; IoU-pass bound_us {bms * 1e3:.3f} ({bby}, "
-        f"{pairs:.0f} pairs)")
+        f"kept {int(keep.sum())} by box {stop}; {calls} kernel a call on the "
+        f"card ({', '.join(ran)}), {alloc} device bytes allocated (the keep "
+        f"mask: {np_pad * 4}); IoU tests {tests}, modelled (the two-pass "
+        f"bitmask design's mask pass: "
+        f"{np_pad * (np_pad - 1) // 2}); kernel_ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms n/a; IoU-pass bound_us {bms * 1e3:.3f} "
+        f"({bby}, {pairs:.0f} pairs)")
     if not ok:
-        fail("nms_keep_sorted disagrees with its plain version")
+        fail("nms_keep_sorted disagrees with its plain version, or put more "
+             "than one kernel on the card or took more device memory than its "
+             "keep mask")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=bby, library_ms=None)
 
@@ -700,7 +784,7 @@ def check_attention_full(torch, dev, rng):
                 bound_by=bby, library_ms=library_ms)
 
 
-def check_nms_classic(torch, dev, rng):
+def check_nms_classic(torch, dev, rng, ran):
     """nms_keep_sorted at the shape of the classic detection tail: 80
     classes of 300 boxes padded to 512, each class stopping at 100 kept."""
     from relation_tpu_torch.ops.kernels import nms_kernel as K
@@ -714,22 +798,30 @@ def check_nms_classic(torch, dev, rng):
     bT_t, v_t = torch.tensor(bT, device=dev), torch.tensor(valid, device=dev)
 
     def kernel():
-        return K.launch_sweep(v_t, K.launch_mask(bT_t, thresh), block, max_keep)
+        return K.nms_keep_sorted(bT_t, v_t, thresh, block, max_keep)
     got = kernel()
     want = K.nms_keep_sorted_reference(bT_t, v_t, thresh, block, max_keep)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     kept = want.sum(1).cpu().numpy()
-    ok = err == 0.0 and kept.max() >= max_keep and kept.min() < max_keep
+    ok = (err == 0.0 and kept.max() >= max_keep and kept.min() < max_keep
+          and len(ran) == 1 and "nms_kernel" in ran[0])
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, lambda: K.nms_keep_sorted_reference(
         bT_t, v_t, thresh, block, max_keep), inner=1, reps=7)
+    keep_np = want.cpu().numpy()
+    tests = sum(nms_tests(keep_np[c], valid[c], block, max_keep)[0]
+                for c in range(C))
     log(f"[kernel] nms_keep_sorted C={C} Np={np_pad} t={thresh} max_keep={max_keep} "
         f"(classic tail): keep-mask mismatches {err:.0f} (tol 0) "
         f"{'OK' if ok else 'FAIL'}; kept per class {int(kept.min())}..{int(kept.max())}; "
+        f"{len(ran)} kernel a call on the card; "
+        f"IoU tests {tests}, modelled (two-pass design: "
+        f"{C * np_pad * (np_pad - 1) // 2}); "
         f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a")
     if not ok:
-        fail("nms_keep_sorted (classic tail shape) disagrees with its plain version")
+        fail("nms_keep_sorted (classic tail shape) disagrees with its plain "
+             "version, or put more than one kernel on the card")
 
 
 def col2im_inputs(torch, dev, rng, B, G=4, H=38, W=64, kk=9, cg=128):
@@ -1044,6 +1136,7 @@ COUNTERS = {"geom_bias": ("geom_bias", "launches"),
 # name in the JSON line -> (module, dict of its launches by shape): the rows
 # whose launches mix shapes, so that launches x (ms - bound) splits by shape
 SHAPES = {"geom_bias": ("geom_bias", "launch_shapes"),
+          "nms_keep_sorted": ("nms_kernel", "launch_shapes"),
           "geom_bias_bwd": ("geom_bias", "bwd_launch_shapes"),
           "fused_bias_attention": ("bias_attention", "launch_shapes"),
           "fused_nms_relation_attention_skip": ("nms_attention", "launch_shapes")}
@@ -1943,7 +2036,9 @@ def main() -> None:
         "geom_bias": (csrc + "geom_bias.cu", pallas + "geom_bias.py:275",
                       check_geom_bias, rng),
         "nms_keep_sorted": (csrc + "nms_kernel.cu", pallas + "nms_kernel.py:118",
-                            check_nms, rng),
+                            lambda t, d, r: check_nms(t, d, r,
+                                                      nms_ran["C=1 Np=6144"]),
+                            rng),
         "stem_conv1_bn_relu": (csrc + "stem.cu", pallas + "stem.py:67",
                                check_stem, rng),
         "fused_nms_relation_attention_skip": (
@@ -1982,9 +2077,12 @@ def main() -> None:
         checks = {k: checks[k] for k in (
             "fused_nms_relation_attention_skip", "fused_geometric_bias_skip",
             "fused_bias_attention", "fused_bias_attention_skip")}
+    nms_ran = (nms_kernels_a_call(torch, dev)
+               if args.phase in ("all", "kernels", "dcn") else {})
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
     if args.phase in ("all", "kernels", "dcn"):
-        check_nms_classic(torch, dev, np.random.RandomState(4))
+        check_nms_classic(torch, dev, np.random.RandomState(4),
+                          nms_ran["C=80 Np=512"])
     if args.phase == "kernels":
         log("[done] kernel phase only: no device line")
         return

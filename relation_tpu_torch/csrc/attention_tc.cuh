@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "classes.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -90,26 +91,6 @@ struct Shape {
 struct Chunk {
   int c, g, r0, rows, k0, keys;
 };
-
-// the active classes in order into cls (active == nullptr: every class);
-// returns their count. Every thread of the block calls it: a barrier inside.
-__device__ __forceinline__ int active_classes(int* cls, const int* active, int C) {
-  __shared__ int n_cls;
-  const int lane = threadIdx.x & 31;
-  if (threadIdx.x < 32) {
-    int n = 0;
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      const int c = c0 + lane;
-      const bool on = c < C && (active == nullptr || active[c] != 0);
-      const unsigned msk = __ballot_sync(0xffffffffu, on);
-      if (on) cls[n + __popc(msk & ((1u << lane) - 1u))] = c;
-      n += __popc(msk);
-    }
-    if (lane == 0) n_cls = n;
-  }
-  __syncthreads();
-  return n_cls;
-}
 
 // rows [0, rows) x columns [0, cols) of a row-major source with leading
 // dimension ld into dst [rows][ds]; zeros at row >= nv or column >= cv.

@@ -24,12 +24,16 @@
 // instruction rate bounds it, not the memory.
 //
 // Design:
-// - acc comes from geom_accumulate and geom_add_bias of geom_trig.cuh, the
-//   very functions the forward calls, so the clamp decision acc > 1e-6 is the
-//   forward's bit for bit (near the clamp 1/acc reaches 1e6, and a flipped
-//   decision would be a gradient of that size).
-// - Work goes out in units of 32 pairs, one a lane. A warp stages its unit's
-//   trig [64, 32] and d_acc [G, 32] in a shared-memory region of its own
+// - acc comes from geom_tile_acc and geom_add_bias of geom_trig.cuh, the
+//   very functions the forward calls (split-f16 mma.sync, the lane that
+//   holds a pair's k indices computing its trig, which it also stores into
+//   the warp's trig tile), so the clamp decision acc > 1e-6 is the forward's
+//   bit for bit (near the clamp 1/acc reaches 1e6, and a flipped decision
+//   would be a gradient of that size). W's B fragments for it come from the
+//   same table in shared memory as the forward's (geom_w_table); W itself is
+//   staged only for d_pos. d_acc is formed in the accumulators' layout.
+// - Work goes out in units of 32 pairs (two m16 tiles). A warp stages its
+//   unit's trig [64, 32] and d_acc [G, 32] in a shared-memory region of its own
 //   (row stride 36 floats, so the fragment reads of a warp fall on 32
 //   distinct banks) and adds trig_65 [65 -> 80, 32] x d_acc^T [32, G] to a
 //   [80, G] sum in registers with mma.sync m16n8k8 TF32, each operand split
@@ -68,8 +72,11 @@ constexpr int kS = kU + 4;     // row stride of a warp's staged tiles (36 = 4
 constexpr int kRows = 65;      // 64 trig rows + the constant row of d_b
 constexpr int kMT = 5;         // m16 tiles of the 80 padded rows
 
-__host__ __device__ constexpr int smem_floats(int G) {
-  return kWarps * (64 * kS + G * kS) + 64 * G + G;
+// shared memory: the warps' trig and d_acc tiles, W's fragment table, b,
+// and with d_pos W itself
+__host__ __device__ constexpr int smem_floats(int G, bool dpos) {
+  return kWarps * (64 * kS + G * kS) + 4 * ((G + 7) / 8) * 32 * 4 + G +
+         (dpos ? 64 * G : 0);
 }
 
 // acc[mt][nt] += trig_65[16 mt .., 0:32] x d_acc^T[0:32, 8 nt ..] over the
@@ -133,13 +140,18 @@ geom_bias_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ w,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* tw = smem + warp * 64 * kS;               // this warp's trig [64][kS]
   float* dw = smem + kWarps * 64 * kS + warp * G * kS;  // its d_acc [G][kS]
-  float* sw = smem + kWarps * (64 + G) * kS;       // [64][G], float4 rows
-  float* sb = sw + 64 * G;                         // [G]
+  uint4* wf = reinterpret_cast<uint4*>(smem + kWarps * (64 + G) * kS);  // [4][NT][32]
+  float* sb = reinterpret_cast<float*>(wf + 4 * NT * 32);              // [G]
+  float* sw = sb + G;                              // [64][G] (d_pos only)
 
-  for (int i = threadIdx.x; i < 64 * G; i += kThreads) sw[i] = w[i];
+  const float winv = geom_w_table<G>(wf, w, smem);  // the trig tiles: free yet
   for (int i = threadIdx.x; i < G; i += kThreads) sb[i] = b[i];
+  if constexpr (DPOS)
+    for (int i = threadIdx.x; i < 64 * G; i += kThreads) sw[i] = w[i];
   __syncthreads();
 
+  const int gid = lane >> 2, tig = lane & 3;
+  const GeomWTable<NT> wt{wf};
   float acc[kMT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -152,33 +164,68 @@ geom_bias_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ w,
   const long u_end = (long)(blockIdx.x + 1) * units / gridDim.x;
   for (long unit = (long)blockIdx.x * units / gridDim.x + warp; unit < u_end;
        unit += kWarps) {
-    const long idx = unit * kU + lane;
-    const bool valid = idx < total;
-    const long c = valid ? idx / P : 0;
-    const long p = valid ? idx % P : 0;
-
-    // 1. trig and acc of this lane's pair, as the forward computes them
-    float pv[4];
+    // 1. trig and acc + b of the unit's pairs as the forward computes them
+    //    (geom_tile_acc, two m16 tiles), the trig into tw; d_acc through the
+    //    log and the clamp, in the accumulators' layout, into dw; a pair past
+    //    the end adds 0. Both tiles' positions are loaded first, and each
+    //    tile's cotangent before its product, so that the loads wait once.
+    float pv[2][2][4];
+    long cq[2][2], pq[2][2];
+    bool ok[2][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pv[j] = valid ? pos[(c * 4 + j) * P + p] : 0.f;
-    float da[G];
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int g = 0; g < G; ++g) da[g] = 0.f;
-    geom_accumulate<G, true>(pv, scale, sw, G, da, tw + lane, kS);
-
-    // 2. d_acc through the log and the clamp; a pair past the end adds 0
+      for (int h = 0; h < 2; ++h) {
+        const long q = unit * kU + 16 * mt + gid + 8 * h;
+        ok[mt][h] = q < total;
+        cq[mt][h] = ok[mt][h] ? q / P : 0;
+        pq[mt][h] = ok[mt][h] ? q % P : 0;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float a = geom_add_bias(da[g], sb[g]);
-      const float go = valid ? gout[(c * G + g) * P + p] : 0.f;
-      if (acc_out != nullptr && valid) acc_out[(c * G + g) * P + p] = a;
-      da[g] = a > 1e-6f ? __fdiv_rn(go, a) : 0.f;
-      dw[g * kS + lane] = da[g];
+        for (int j = 0; j < 4; ++j)
+          pv[mt][h][j] = ok[mt][h] ? pos[(cq[mt][h] * 4 + j) * P + pq[mt][h]] : 0.f;
+      }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float go[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int g = 8 * nt + 2 * tig + (i & 1), h = i >> 1;
+          go[nt][i] = g < G && ok[mt][h] ? gout[(cq[mt][h] * G + g) * P + pq[mt][h]] : 0.f;
+        }
+      float a[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[nt][i] = 0.f;
+      geom_tile_acc<NT, true>(pv[mt], scale, lane, wt, winv, a, tw + 16 * mt, kS);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int g = 8 * nt + 2 * tig + (i & 1), h = i >> 1;
+          if (g < G) {
+            const float av = geom_add_bias(a[nt][i], sb[g]);
+            if (acc_out != nullptr && ok[mt][h])
+              acc_out[(cq[mt][h] * G + g) * P + pq[mt][h]] = av;
+            dw[g * kS + 16 * mt + gid + 8 * h] =
+                av > 1e-6f ? __fdiv_rn(go[nt][i], av) : 0.f;
+          }
+        }
     }
+    __syncwarp();
 
-    // 3. d_pos from d_trig = W d_acc, two rows of d_trig at a time
+    // 2. d_pos of the lane's pair from d_trig = W d_acc, two rows of d_trig
+    //    at a time
     if constexpr (DPOS) {
+      const long idx = unit * kU + lane;
+      const bool valid = idx < total;
+      const long c = valid ? idx / P : 0;
+      const long p = valid ? idx % P : 0;
+      float da[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) da[g] = dw[g * kS + lane];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float dp = 0.f;
@@ -205,7 +252,7 @@ geom_bias_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ w,
     }
     __syncwarp();
 
-    // 4. the unit's trig_65 x d_acc^T on the tensor cores
+    // 3. the unit's trig_65 x d_acc^T on the tensor cores
     dwb_product<G>(acc, tw, dw, lane);
     __syncwarp();
   }
@@ -213,7 +260,6 @@ geom_bias_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ w,
   // the warps' sums, added in warp order into the block's partial
   __syncthreads();
   float* red = smem;  // [kWarps][kRows][G], over the trig regions
-  const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -250,7 +296,7 @@ template <int G, bool DPOS>
 cudaError_t set_smem() {
   return cudaFuncSetAttribute(geom_bias_bwd_kernel<G, DPOS>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(smem_floats(G) * sizeof(float)));
+                              (int)(smem_floats(G, DPOS) * sizeof(float)));
 }
 
 // blocks of the first kernel: as many as the SMs hold at once, and no more
@@ -265,7 +311,7 @@ cudaError_t grid(long total, int* blocks) {
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, geom_bias_bwd_kernel<G, false>, kThreads,
-      smem_floats(G) * sizeof(float));
+      smem_floats(G, false) * sizeof(float));
   if (err != cudaSuccess) return err;
   const long units = (total + kU - 1) / kU;
   const long want = (units + kWarps - 1) / kWarps;
@@ -279,16 +325,17 @@ cudaError_t launch(const float* pos, const float* w, const float* b,
                    const float* gout, float* dpos, float* acc_out,
                    float* partial, float* dwb, long P, long total, float scale,
                    int blocks, cudaStream_t stream) {
-  const size_t smem = smem_floats(G) * sizeof(float);
   cudaError_t err;
   if (dpos != nullptr) {
     if ((err = set_smem<G, true>()) != cudaSuccess) return err;
-    geom_bias_bwd_kernel<G, true><<<blocks, kThreads, smem, stream>>>(
-        pos, w, b, gout, dpos, acc_out, partial, P, total, scale);
+    geom_bias_bwd_kernel<G, true>
+        <<<blocks, kThreads, smem_floats(G, true) * sizeof(float), stream>>>(
+            pos, w, b, gout, dpos, acc_out, partial, P, total, scale);
   } else {
     if ((err = set_smem<G, false>()) != cudaSuccess) return err;
-    geom_bias_bwd_kernel<G, false><<<blocks, kThreads, smem, stream>>>(
-        pos, w, b, gout, dpos, acc_out, partial, P, total, scale);
+    geom_bias_bwd_kernel<G, false>
+        <<<blocks, kThreads, smem_floats(G, false) * sizeof(float), stream>>>(
+            pos, w, b, gout, dpos, acc_out, partial, P, total, scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -1,6 +1,7 @@
 """Exact greedy-NMS keep mask over score-sorted boxes: CUDA kernel and plain
 version. Port of relation_tpu/ops/pallas/nms_kernel.py::nms_keep_sorted; the
-kernel is csrc/nms_kernel.cu (bitmask pass + one-warp sweep per class).
+kernel is csrc/nms_kernel.cu (one launch: a cluster of blocks a class walks
+the boxes chunk by chunk, testing each chunk against the boxes kept so far).
 
 Semantics shared by both versions and the TPU kernel: boxes are in descending
 score order, IoU uses the +1 width convention and the divide-free test
@@ -18,6 +19,7 @@ import torch
 from relation_tpu_torch.ops.kernels import _build
 
 launches = 0          # kernel launches of nms_keep_sorted (CUDA only)
+launch_shapes: dict[str, int] = {}   # its launches by "C= Np="
 
 
 def _suppress(a, b, thresh_t):
@@ -71,44 +73,35 @@ def nms_keep_sorted_reference(boxesT: torch.Tensor, valid: torch.Tensor,
     return keep.to(torch.float32)
 
 
-def _fn(lib, name, argtypes):
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return fn
-
-
-def launch_mask(boxesT: torch.Tensor, thresh: float) -> torch.Tensor:
-    """The parallel bitmask pass alone: [C, N, ceil(N/64)] int64 words."""
+def launch(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
+           block: int, cap: int) -> torch.Tensor:
+    """The kernel, one launch: keep [C, N] f32. Raises, launching nothing,
+    when the walk could keep more boxes a class than the kernel's kept list
+    holds (1024 boxes a block of the class's cluster)."""
     C, _, N = boxesT.shape
-    words = -(-N // 64)
-    mask = torch.empty((C, N, words), dtype=torch.int64, device=boxesT.device)
-    fn = _fn(_build.load("nms_kernel"), "nms_mask",
-             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-              ctypes.c_void_p, ctypes.c_void_p])
-    _build.check(fn(_build.ptr(boxesT), C, N, float(thresh), _build.ptr(mask),
-                    _build.stream_ptr(boxesT.device)), "nms_mask")
-    return mask
-
-
-def launch_sweep(valid: torch.Tensor, mask: torch.Tensor, block: int,
-                 max_keep: int) -> torch.Tensor:
-    """The serial sweep alone, one warp per class: keep [C, N] f32."""
-    C, N = valid.shape
-    keep = torch.empty((C, N), dtype=torch.float32, device=valid.device)
-    fn = _fn(_build.load("nms_kernel"), "nms_sweep",
-             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    _build.check(fn(_build.ptr(valid), _build.ptr(mask), C, N, int(block),
-                    int(max_keep), _build.ptr(keep),
-                    _build.stream_ptr(valid.device)), "nms_sweep")
+    keep = torch.empty((C, N), dtype=torch.float32, device=boxesT.device)
+    fn = _build.load("nms_kernel").nms_keep
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
+    rc = fn(_build.ptr(boxesT), _build.ptr(valid), _build.ptr(keep), C, N,
+            int(block), int(cap), float(thresh), _build.stream_ptr(boxesT.device))
+    if rc < 0:
+        raise ValueError(
+            f"nms_keep_sorted: up to {min(N, cap + block - 1)} kept boxes a "
+            f"class (N={N}, max_keep={cap}, block={block}), more than the "
+            f"kernel's kept list holds at C={C} ({-rc}); pass a smaller "
+            "max_keep")
+    _build.check(rc, "nms_keep")
     return keep
 
 
 def nms_keep_sorted(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
                     block: int = 256, max_keep: int | None = None) -> torch.Tensor:
     """Batched greedy-NMS keep mask. boxesT [C, 4, N] f32 sorted by
-    descending score, N a multiple of ``block``; valid [C, N] f32.
+    descending score, N a multiple of ``block`` (on the card a multiple of
+    64); valid [C, N] f32.
     Returns keep [C, N] f32. CUDA tensors launch the kernel; CPU tensors
     take the plain version. The mask has no gradient: on the card an input
     that requires one is refused."""
@@ -116,14 +109,18 @@ def nms_keep_sorted(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
     if boxesT.device.type != "cuda":
         return nms_keep_sorted_reference(boxesT, valid, thresh, block, max_keep)
     C, four, N = boxesT.shape
-    if four != 4 or valid.shape != (C, N) or N % block:
+    if four != 4 or valid.shape != (C, N) or N % block or block % 64:
         raise ValueError(f"nms_keep_sorted: shapes {tuple(boxesT.shape)}, "
                          f"{tuple(valid.shape)}, block {block}")
     if boxesT.dtype != torch.float32 or valid.dtype != torch.float32:
         raise TypeError("nms_keep_sorted: expects float32 boxes and valid")
     _build.check_inputs("nms_keep_sorted", boxesT, valid)
+    if boxesT.data_ptr() % 16 or valid.data_ptr() % 16:
+        raise ValueError("nms_keep_sorted: the kernel copies 16-byte pieces; "
+                         "boxesT and valid must start 16-byte aligned")
     _build.refuse_grad("nms_keep_sorted", boxesT, valid)
     cap = N if max_keep is None else int(max_keep)
-    keep = launch_sweep(valid, launch_mask(boxesT, thresh), block, cap)
+    keep = launch(boxesT, valid, thresh, block, cap)
     launches += 1
+    _build.tally(launch_shapes, f"C={C} Np={N}")
     return keep

@@ -175,8 +175,9 @@ def classwise_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     boxes [C, N, 4] (or [N, 4] shared by the classes), scores [C, N]. One
     route on every device, the JAX package's TPU route: stable descending
     sort per class, pad to a multiple of the sweep block, ONE call of
-    ``nms_keep_sorted`` over [C, 4, Np] (the CUDA kernel runs one sweep
-    block per class, each stopping at its own ``max_keep``), un-sort."""
+    ``nms_keep_sorted`` over [C, 4, Np] (the CUDA kernel walks each class
+    with its own cluster of blocks, each stopping at its own ``max_keep``),
+    un-sort."""
     C, n = scores.shape
     dev = scores.device
     if boxes.dim() == 2:

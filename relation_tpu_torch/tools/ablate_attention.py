@@ -56,8 +56,8 @@ VARIANTS = {
         "cvtround": [CVTROUND],
         # the accurate sincosf replaced by the fast approximation
         "fasttrig": [("geom_trig.cuh",
-                      "sincosf(__fmul_rn(pj, kGeomFreq[k]), &s, &c);",
-                      "__sincosf(__fmul_rn(pj, kGeomFreq[k]), &s, &c);")],
+                      "sincosf(__fmul_rn(pj, fr[kk]), &sn[h][kk], &cs[h][kk]);",
+                      "__sincosf(__fmul_rn(pj, fr[kk]), &sn[h][kk], &cs[h][kk]);")],
     },
     "bias_attention": {
         "full": [],

@@ -22,6 +22,7 @@ from relation_tpu_torch.ops.kernels import (bias_attention as BA,
                                             nms_attention as NA,
                                             nms_kernel as NK, res4 as RS,
                                             stem as ST)
+from tests.test_torch_helpers import NMS_EDGE_CASES, nms_edge_case
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +84,63 @@ def test_nms_kernel_matches_plain_exactly(dev, thresh, max_keep, block, integer)
     want = NK.nms_keep_sorted_reference(bT_t, v_t, thresh, block, max_keep)
     assert torch.equal(got, want)
     assert float(want.sum()) > 0
+
+
+@pytest.mark.parametrize("shape", ["proposals", "classic None", "classic 100"])
+@pytest.mark.parametrize("kind", NMS_EDGE_CASES)
+def test_nms_kernel_edge_cases(dev, kind, shape):
+    """The cases a chunk-by-chunk walk can get wrong (tests/
+    test_torch_helpers.py::nms_edge_case) at the proposals' shape (Np 6144,
+    6000 boxes, max_keep 300; one class, or 2 and 4 where the case needs
+    classes) and at the classic tail's (80 classes, Np 512, 300 boxes,
+    max_keep None and 100): one launch, keep masks equal to the plain
+    version's bit for bit, the launch tallied by shape."""
+    if shape == "proposals":
+        C = {"invalid_class": 2, "staggered_stops": 4}.get(kind, 1)
+        Np, n, max_keep = 6144, 6000, 300
+    else:
+        C, Np, n = 80, 512, 300
+        max_keep = None if shape == "classic None" else 100
+    bT, valid, thresh = nms_edge_case(kind, C, Np, n, seed=Np + C)
+    bT_t, v_t = _tens(bT, dev), _tens(valid, dev)
+    before, shapes = NK.launches, dict(NK.launch_shapes)
+    got = NK.nms_keep_sorted(bT_t, v_t, thresh, block=256, max_keep=max_keep)
+    assert NK.launches == before + 1
+    key = f"C={C} Np={Np}"
+    assert NK.launch_shapes[key] == shapes.get(key, 0) + 1
+    want = NK.nms_keep_sorted_reference(bT_t, v_t, thresh, 256, max_keep)
+    assert torch.equal(got, want)
+    assert float(want.sum()) > 0
+
+
+@pytest.mark.parametrize("C", [1, 40, 100, 200])
+def test_nms_kernel_cluster_sizes(dev, C):
+    """The class count picks the cluster size (the largest of 8, 4, 2 whose
+    C x size blocks the card holds at once, else 1). On an H100 (132 SMs,
+    two blocks an SM) C = 1, 40, 100 and 200 take clusters of 8, 4, 2 and
+    1: each gives the plain version's keep mask, on crowded classes whose
+    walks stop in different chunks (one class visits 22 chunks)."""
+    if C == 1:
+        bT, valid, thresh = nms_edge_case("staggered_stops", 1, 6144, 6000, seed=3)
+    else:
+        bT, valid, thresh = nms_edge_case("staggered_stops", C, 2048, 2000, seed=C)
+    bT_t, v_t = _tens(bT, dev), _tens(valid, dev)
+    want = NK.nms_keep_sorted_reference(bT_t, v_t, thresh, 256, 300)
+    if C == 1:
+        assert int(torch.nonzero(want[0]).max()) >= 20 * 256
+    assert torch.equal(NK.nms_keep_sorted(bT_t, v_t, thresh, 256, 300), want)
+
+
+def test_nms_kernel_refuses_a_kept_list_over_capacity(dev):
+    """A walk that could keep more boxes a class than the kernel's kept list
+    holds (1024 a block, clusters of at most 8 blocks) is refused before the
+    launch."""
+    Np = 16 * 1024
+    before = NK.launches
+    with pytest.raises(ValueError, match="kept list"):
+        NK.nms_keep_sorted(torch.zeros((1, 4, Np), device=dev),
+                           torch.ones((1, Np), device=dev), 0.5, block=256)
+    assert NK.launches == before
 
 
 @pytest.mark.parametrize("B,Ho,Wo", [(2, 37, 45), (1, 3, 5), (1, 64, 130),

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from tests.test_torch_helpers import n, t
+from tests.test_torch_helpers import NMS_EDGE_CASES, n, nms_edge_case, t
 from relation_tpu_torch.ops.kernels import (geom_bias as tg, nms_attention as ta,
                                             nms_kernel as tn, stem as ts)
 
@@ -67,6 +67,43 @@ def test_nms_plain_matches_pallas(thresh, max_keep):
                                max_keep=max_keep))
     np.testing.assert_array_equal(got, want)
     assert want.sum() > 0
+
+
+@pytest.mark.parametrize("block", [64, 256])
+@pytest.mark.parametrize("kind", NMS_EDGE_CASES)
+def test_nms_plain_matches_pallas_edge_cases(kind, block):
+    """C=3, Np=512 (500 boxes), max_keep 40: the cases a kernel that walks
+    the boxes chunk by chunk can get wrong (tests/test_torch_helpers.py::
+    nms_edge_case), each checked to be the case it names; keep masks
+    exactly equal to the Pallas kernel's in interpret mode."""
+    from relation_tpu.ops.pallas.nms_kernel import nms_keep_sorted as jn
+    max_keep = 40
+    bT, valid, thresh = nms_edge_case(kind, 3, 512, 500, seed=block + 11)
+    want = np.asarray(jn(jnp.asarray(bT), jnp.asarray(valid), thresh=thresh,
+                         block=block, max_keep=max_keep, interpret=True))
+    got = n(tn.nms_keep_sorted(t(bT), t(valid), thresh, block=block,
+                               max_keep=max_keep))
+    np.testing.assert_array_equal(got, want)
+    kept = want.sum(1)
+    last = [int(np.nonzero(k)[0].max()) for k in want if k.any()]
+    if kind == "mid_block_stop":      # the block in progress was finished
+        assert (kept > max_keep).all() and (kept < 500).all()
+    if kind == "exact_ties":          # IoU exactly 0.5 in f32
+        pair = np.arange(2, 500, 3)
+        a, b = bT[:, :, pair - 1], bT[:, :, pair]
+        one = np.float32(1)
+        iw = np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]) + one
+        ih = np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]) + one
+        inter = iw * ih
+        area = lambda x: (x[:, 2] - x[:, 0] + one) * (x[:, 3] - x[:, 1] + one)
+        uni = area(a) + area(b) - inter
+        assert int((inter == np.float32(thresh) * uni).sum()) > 100
+    if kind == "degenerate":
+        assert bool(((bT[:, 2] < bT[:, 0]) | (bT[:, 3] < bT[:, 1])).any())
+    if kind == "invalid_class":
+        assert kept[0] == 0 and (kept[1:] > 0).all()
+    if kind == "staggered_stops":     # the classes stop in different chunks
+        assert len({i // block for i in last}) > 1
 
 
 def test_stem_plain_matches_pallas(rng):

@@ -1,6 +1,9 @@
 """The arithmetic of the tensor-core kernels, emulated in plain PyTorch on the
 CPU and held against the plain f32 versions at the chip check's tolerance:
-the d_W/d_b product of csrc/geom_bias_bwd.cu, the scores and attn @ u of
+the d_W/d_b product of csrc/geom_bias_bwd.cu, the geometric-bias product of
+csrc/geom_trig.cuh::geom_tile_acc (csrc/geom_bias.cu, and the backward's
+recompute of it; mma.sync m16n8k16 with f16 operands split in two parts)
+against an f64 sum, the scores and attn @ u of
 csrc/bias_attention.cu and the bias product of csrc/nms_attention.cu (rows
 6/9, the same attention body after it), all mma.sync m16n8k8 with TF32
 operands; and the weight layout of csrc/stem.cu (bf16 mma.sync m16n8k16
@@ -189,6 +192,80 @@ def test_geom_bias_bwd_product_split_tf32_holds_the_band(C, N, M):
 
 
 # --------------------------------------------------------------------------
+# rows 1/3: the geometric-bias forward's product (and row 2's recompute of it)
+# --------------------------------------------------------------------------
+
+def trig_rows(pos):
+    """The sinusoid embedding of every pair, [pairs, 64] in feature order
+    (class-major pairs), and the shape [C, N, M]."""
+    trig = GB._trig(pos, 100.0)                                  # [C, 64, N, M]
+    C, _, N, M = trig.shape
+    return trig.permute(0, 2, 3, 1).reshape(-1, 64), (C, N, M)
+
+
+def f16_split(x):
+    """x = hi + lo in f16 parts (round to nearest even), as f32 values."""
+    hi = x.half().float()
+    return hi, (x - hi).half().float()
+
+
+def geom_acc_emulated(pos, w, passes=3):
+    """acc = trig [pairs, 64] x W [64, G] as csrc/geom_trig.cuh::geom_tile_acc
+    adds it (rows 1 and 3, and row 2's recompute): W scaled by 2^e (its
+    largest element then in [2^14, 2^15)); four k16 steps, step j the 16
+    features of field j; each step's f16-split products lo hi, hi lo, hi hi
+    into an accumulator of their own from zero, then scaled by 2^-e and
+    added to acc in f32, step by step (``passes`` 1: hi hi alone). A pair's
+    value depends on its own row only, so the tiling does not enter.
+    -> [C, G, N, M]"""
+    a, (C, N, M) = trig_rows(pos)
+    ex = int(torch.frexp(w.abs().max()).exponent)
+    ws = w * 2.0 ** (15 - ex)
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for j in range(4):
+        (ah, al), (bh, bl) = f16_split(a[:, 16 * j:16 * j + 16]), \
+            f16_split(ws[16 * j:16 * j + 16])
+        terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
+        d = torch.zeros_like(acc)
+        for x, y in terms:
+            d = mma(d, x, y)
+        acc = acc + d * 2.0 ** (ex - 15)
+    return acc.reshape(C, N, M, -1).permute(0, 3, 1, 2)
+
+
+# the head's relation modules' shape (C=1, boxes against themselves) cut to
+# a small N, at the G the model uses and the two ends of the supported ones
+@pytest.mark.parametrize("N,G", [(37, 16), (64, 4), (50, 32)])
+def test_geom_bias_fwd_split_f16_holds_the_band(N, G):
+    """The forward's acc against an f64 sum of the same trig and W: split f16
+    holds the chip check's band (|error| <= 1e-5 in the clamped acc, <= 1e-4
+    in the log where acc > 1e-2); one f16 pass misses it, and so does one
+    TF32 pass (the design the split f16 replaced ran three)."""
+    rng = np.random.RandomState(N + G)
+    pos = extract_position_matrix_t(random_boxes(rng, N), N)[None].contiguous()
+    w = torch.tensor(rng.randn(64, G) * 0.1, dtype=torch.float32)
+    b = torch.tensor(rng.randn(G) * 0.05, dtype=torch.float32)
+    trig = GB._trig(pos, 100.0).double()
+    exact = torch.einsum("cfnm,fg->cgnm", trig, w.double()) \
+        + b.double()[None, :, None, None]
+    want = exact.clamp_min(1e-6)
+    clear = want > 1e-2
+    assert float(clear.double().mean()) > 0.2
+    errs = {}
+    rows, (C, _, _) = trig_rows(pos)
+    one_tf32 = matmul_emulated(rows, w, 1).reshape(C, N, N, G).permute(0, 3, 1, 2)
+    for passes, acc in (("f16 x3", geom_acc_emulated(pos, w, 3)),
+                        ("f16 x1", geom_acc_emulated(pos, w, 1)),
+                        ("tf32 x1", one_tf32)):
+        got = (acc + b[None, :, None, None]).double().clamp_min(1e-6)
+        errs[passes] = (float((got - want).abs().max()),
+                        float((got.log() - want.log())[clear].abs().max()))
+    assert errs["f16 x3"][0] <= 1e-5 and errs["f16 x3"][1] <= 1e-4, errs
+    # one pass, f16 or TF32, misses the band
+    assert errs["f16 x1"][0] > 1e-5 and errs["tf32 x1"][0] > 1e-5, errs
+
+
+# --------------------------------------------------------------------------
 # rows 7/8: the bias attention's scores and attn @ u
 # --------------------------------------------------------------------------
 
@@ -257,18 +334,15 @@ def test_bias_attention_split_tf32_holds_the_band(N):
 def fused_bias_emulated(pos, wg, bg, passes=3):
     """The bias of csrc/nms_attention.cu: trig [pairs, 64] x Wg [64, G] over
     k8 steps in feature order (step s holds features 8 s .. 8 s + 7: field
-    s // 2, sines for even s, cosines for odd), each step's split products
-    lo hi, hi lo, hi hi into one accumulator (mma3); then + bg and
-    log(max(., 1e-6)). The heads of a cluster are columns of one product and
-    do not mix, so the cluster size does not enter."""
-    trig = GB._trig(pos, 100.0)                                  # [C, 64, N, M]
-    C, _, N, M = trig.shape
-    G = wg.shape[1]
-    a = trig.permute(0, 2, 3, 1).reshape(-1, 64)
-    acc = torch.zeros(a.shape[0], G)
+    s // 2, sines for even s, cosines for odd), each step's TF32-split
+    products lo hi, hi lo, hi hi added into one running accumulator (mma3);
+    then + bg and log(max(., 1e-6)). The heads of a cluster are columns of
+    one product and do not mix, so the cluster size does not enter."""
+    a, (C, N, M) = trig_rows(pos)
+    acc = torch.zeros(a.shape[0], wg.shape[1])
     for k in range(0, 64, 8):
         acc = mma_add(acc, a[:, k:k + 8], wg[k:k + 8], passes)
-    acc = acc.reshape(C, N, M, G).permute(0, 3, 1, 2)
+    acc = acc.reshape(C, N, M, -1).permute(0, 3, 1, 2)
     return torch.log(torch.clamp_min(acc + bg[None, :, None, None], 1e-6))
 
 

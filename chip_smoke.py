@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phase kernels  # build + kernel-vs-plain only
     python3 chip_smoke.py --phase dcn      # build, kernel checks, DCN phases only
     python3 chip_smoke.py --phase trunk    # build, trunk kernel checks, phases 8-9
-    python3 chip_smoke.py --phase fpn      # build, FPN-tail kernel checks, phase 10
+    python3 chip_smoke.py --phase fpn      # build, FPN kernel checks, phases 10-11
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
@@ -23,8 +23,9 @@
    learned-NMS tail's C=80, N=150, 16 or 80 classes active, and over 80
    classes at the C4 tail's N=100, two runs bit-equal, with the bound of
    the tensor-core route beside the f32 one; the deformable
-   col2im at B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, with the
-   run-to-run difference its atomics leave; the bottleneck stack at res4
+   col2im at B=1 and B=2 of the 38x64 res5 map, bf16 and f32 rows, and of
+   a 100x64 map, with the run-to-run difference its atomic ranks leave; the
+   bottleneck stack at res4
    (22 blocks), res3 and res2 and the projection bottleneck at res2a, res3a
    and res4a of the 608x1024 trunk, on BN-folded weights of a seeded trunk),
    on seeded random inputs, and times kernel, plain version and (where
@@ -77,7 +78,18 @@
    (greedy per-class NMS tail) and one fpn request (soft-NMS tail). Each
    learned-NMS request must launch its branch's kernels; every request is
    held to the plain path in the bands of phase 4.
-11. Prints the launches of rows 1, 2, 7 and 9 by shape, one JSON line
+11. Trains fpn, fpn_relation and fpn_learn_nms at full width, B=2
+   (prediction layers calibrated as in phase 10, the batch of phase 5): four
+   steps under the clip (ms/step is the median of the last three), then one
+   unclipped step on the kernels against the plain versions within 1e-3
+   relative, as in phase 5; a trainable leaf that stays still must be an
+   FPN bias at zero that the plain step gives no gradient either; the
+   proposal NMS,
+   the stem, the geometric bias and its backward (C=1 in the head's
+   relation modules, C=80 N=150 in the learned-NMS branch) and the bias
+   attention (fpn_learn_nms) launched as each family runs them. Prints
+   ms/step and peak memory.
+12. Prints the launches of rows 1, 2, 4, 7 and 9 by shape, one JSON line
    describing every kernel (launches summed over the driven paths), then
    the device line.
 
@@ -247,6 +259,10 @@ def check_geom_bias_bwd(torch, dev, rng):
         "lnms C=80 N=M=100": extract_multi_position_matrix_t(
             torch.tensor(np.stack([random_boxes(rng, 100) for _ in range(80)], 1),
                          device=dev)),
+        # the FPN learned-NMS dense branch (FIRST_N 150), once per image
+        "lnms C=80 N=M=150": extract_multi_position_matrix_t(
+            torch.tensor(np.stack([random_boxes(rng, 150) for _ in range(80)], 1),
+                         device=dev)),
     }
     result = None
     for label, pos in shapes.items():
@@ -306,10 +322,11 @@ def check_geom_bias_bwd(torch, dev, rng):
             f"{simt * 1e3:.2f})")
         if not (ok and clamp_ok):
             fail(f"geom_bias_bwd {label} disagrees with its plain version")
-        result = dict(max_abs_err=float((got[1] - want[1]).abs().max()), ms=ms,
-                      plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                      library_ms=None)
-    return result  # the larger (learned-NMS) shape goes into the JSON line
+        if label == "lnms C=80 N=M=100":
+            result = dict(max_abs_err=float((got[1] - want[1]).abs().max()),
+                          ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                          library_ms=None)
+    return result  # the C4 learned-NMS shape goes into the JSON line
 
 
 def nms_tests(keep, valid, block, max_keep, T=256):
@@ -824,43 +841,33 @@ def check_nms_classic(torch, dev, rng, ran):
              "version, or put more than one kernel on the card")
 
 
-def col2im_inputs(torch, dev, rng, B, G=4, H=38, W=64, kk=9, cg=128):
-    """Sample coordinates of a 3x3, dilation-2 deformable conv over the res5
-    map with offsets of a few pixels (many samples leave the map), some set
-    exactly on an integer, on -1 and on H, and none within reach of the
-    top-left 3x3 pixels, in the [B, S, G] layout."""
-    Q = H * W
-    base_y = np.repeat(np.arange(H), W)[:, None, None] - 2.0
-    base_x = np.tile(np.arange(W), H)[:, None, None] - 2.0
-    tap = np.arange(3) * 2.0
-    yy = base_y + np.repeat(tap, 3)[None, :, None] + rng.randn(B, Q, kk, G) * 3.0
-    xx = base_x + np.tile(tap, 3)[None, :, None] + rng.randn(B, Q, kk, G) * 3.0
-    edge = rng.rand(B, Q, kk, G)
-    # nothing lands on the 3x3 pixels of the top-left corner: they must
-    # come back exactly zero
-    yy = np.where((yy > -1) & (yy < 3) & (xx > -1) & (xx < 3), -5.0, yy)
-    yy = np.where(edge < 0.02, np.round(yy), yy)
-    yy = np.where((edge >= 0.02) & (edge < 0.03), -1.0, yy)
-    yy = np.where((edge >= 0.03) & (edge < 0.04), float(H), yy)
-    xx = np.where(edge > 0.98, np.round(xx), xx)
-    yy, xx = (torch.tensor(a.reshape(B, Q * kk, G), dtype=torch.float32, device=dev)
-              for a in (yy, xx))
-    inside = (yy > -1.0) & (yy < H) & (xx > -1.0) & (xx < W)
-    zero = torch.zeros_like(yy)
-    d = torch.tensor(rng.randn(B, Q * kk, G, cg), dtype=torch.float32, device=dev)
-    return torch.where(inside, yy, zero), torch.where(inside, xx, zero), inside, d
+# the global-atomics col2im this kernel replaced, B=2 with bf16 rows, on an
+# H100 80GB HBM3 at 700 W (PERF.md section 6)
+ATOMICS_COL2IM_MS = 0.1078
 
 
 def check_col2im(torch, dev, rng):
+    """The col2im kernel against its plain version at B=1 and B=2 of the
+    38x64 res5 map, bf16 and f32 rows, and at B=1 of a 100x64 map; every
+    element written (the first launch writes into NaN), pixels out of every
+    sample's reach exactly zero, two launches within 1e-5 of
+    the largest element (the samples of a cell are summed in the order
+    their atomic ranks give, spilled samples added by atomics). Then the
+    res5 map at B=2 with samples crowded onto two objects (some spill past
+    their cells' buckets), bf16 rows, in the same bands."""
     from relation_tpu_torch.ops.kernels import dconv_col2im as K
-    H, W, G, cg = 38, 64, 4, 128
+    from relation_tpu_torch.tools.ablate_col2im import (col2im_inputs,
+                                                        crowded_inputs, spilled)
+    W, G, cg = 64, 4, 128
     result = None
-    for B in (1, 2):
-        yz, xz, inside, d32 = col2im_inputs(torch, dev, rng, B)
+    for B, H in ((1, 38), (2, 38), (1, 100)):
+        yz, xz, inside, d32 = col2im_inputs(torch, dev, rng, B, H=H)
         n_in = int(inside.sum())
         for d in (d32, d32.to(torch.bfloat16)):
             name = "bf16" if d.dtype == torch.bfloat16 else "f32"
-            got = K._launch(yz, xz, inside, d, H, W)
+            # into NaN: every element of dx must be written
+            got = K._launch(yz, xz, inside, d, H, W, torch.full(
+                (B, H, W, G * cg), float("nan"), device=dev))
             again = K._launch(yz, xz, inside, d, H, W)
             want = K.dconv_col2im_reference(yz, xz, inside, d, H, W)
             torch.cuda.synchronize()
@@ -878,22 +885,51 @@ def check_col2im(torch, dev, rng):
             plain_ms = time_ms(torch, lambda: K.dconv_col2im_reference(
                 yz, xz, inside, d, H, W), inner=2, reps=7)
             # the rows of the samples inside, the coordinates and the mask,
-            # and dx zeroed once and written once; 2 flops a corner a channel
+            # dx written once; 2 flops a corner a channel. The zero-fill
+            # figure (dx zeroed, then written) is the bound of the
+            # global-atomics design, printed beside it
             out_bytes = B * H * W * G * cg * 4
-            bms, bby = bound(n_in * cg * d.element_size() + yz.numel() * 9
-                             + 2 * out_bytes, 2 * 4 * n_in * cg, F32_PEAK)
+            in_bytes = n_in * cg * d.element_size() + yz.numel() * 9
+            bms, bby = bound(in_bytes + out_bytes, 2 * 4 * n_in * cg, F32_PEAK)
+            zfill_ms, _ = bound(in_bytes + 2 * out_bytes, 2 * 4 * n_in * cg,
+                                F32_PEAK)
+            vs = (f" (the global-atomics kernel: {ATOMICS_COL2IM_MS} ms)"
+                  if (B, H, name) == (2, 38, "bf16") else "")
             log(f"[kernel] dconv_col2im B={B} BG={B * G} R={yz.shape[1]} {H}x{W} "
-                f"cg={cg} D {name}: max abs err {err:.3e} of max {top:.3e} (tol "
-                f"1e-5 of max), two launches differ by {rerun:.3e} (atomics), "
-                f"untouched pixels zero: {untouched}, {n_in} of {yz.numel()} "
-                f"samples inside, {'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} "
-                f"plain_ms {plain_ms:.4f} library_ms n/a bound_us "
-                f"{bms * 1e3:.2f} ({bby})")
+                f"cg={cg} D {name}: max abs err {err:.3e} of max {top:.3e} "
+                f"(tol 1e-5 of max), two launches differ by {rerun:.3e}, untouched pixels zero: "
+                f"{untouched}, {n_in} of {yz.numel()} samples inside, "
+                f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f}{vs} plain_ms "
+                f"{plain_ms:.4f} library_ms n/a bound_us {bms * 1e3:.2f} ({bby}; "
+                f"with a zero fill {zfill_ms * 1e3:.2f})")
             if not ok:
-                fail(f"dconv_col2im B={B} {name} disagrees with its plain version")
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=bby, library_ms=None)
-    return result   # B=2 with bf16 rows, what the train step launches
+                fail(f"dconv_col2im B={B} {H}x{W} {name} disagrees with its "
+                     "plain version")
+            if (B, H, name) == (2, 38, "bf16"):
+                # what the DCN train step launches
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bms, bound_by=bby, library_ms=None)
+    label, (yz, xz, inside, d), H, W = crowded_inputs(torch, dev, rng)[0]
+    d = d.to(torch.bfloat16)
+    got = K._launch(yz, xz, inside, d, H, W, torch.full(
+        (2, H, W, d.shape[2] * d.shape[3]), float("nan"), device=dev))
+    again = K._launch(yz, xz, inside, d, H, W)
+    want = K.dconv_col2im_reference(yz, xz, inside, d, H, W)
+    torch.cuda.synchronize()
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rerun = float((got - again).abs().max())
+    over, reach, most = spilled(yz, xz, inside, H, W)
+    ok = err <= 1e-5 * top and rerun <= 1e-5 * top and over > 0
+    ms = time_ms(torch, lambda: K._launch(yz, xz, inside, d, H, W))
+    log(f"[kernel] dconv_col2im {label} D bf16: {over} of {reach} samples "
+        f"spilled (at most {most} a cell), max abs err {err:.3e} of max {top:.3e} "
+        f"(tol 1e-5 of max), two launches differ by {rerun:.3e}, "
+        f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f}")
+    if not ok:
+        fail(f"dconv_col2im on crowded samples: disagrees with its plain version "
+             f"or nothing spilled ({over})")
+    return result
 
 
 def jitter_bn(torch, model, rng) -> None:
@@ -1835,17 +1871,20 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     dense learned-NMS attention, then ``fused_steps`` with the fully fused
     one), then one unclipped step from the same start on the kernels and on
     the plain versions. A DCN family gets its offset branches seeded away
-    from zero, and its unclipped pair of steps computes in f32 (see below).
+    from zero, and its unclipped pair of steps computes in f32 (see below);
+    an FPN family gets its prediction layers calibrated as in phase 10.
     ``tiny`` (a rehearsal on the CPU) takes the tiny trunk and a 64x128
-    image. Returns the launch counts of the clipped steps."""
+    image. Returns (the launch counts of the clipped steps, the median
+    ms/step after one warm-up, the peak memory in GiB)."""
     from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  make_train_step, trainable_mask)
     from relation_tpu_torch.entry import BUCKET, family_cfg
     H, W = (64, 128) if tiny else BUCKET
     batch = training_batch(H, W)
     B = batch["image"].shape[0]
-    dcn = family.startswith("dcn")
+    dcn, fpn = family.startswith("dcn"), family.startswith("fpn")
     tag = f"[train {family}]"
     steps = dense_steps + fused_steps
 
@@ -1863,6 +1902,10 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
             if dcn:
                 seed_offsets(torch, model, cfg, batch["image"][0],
                              batch["im_info"][0])
+            if fpn:
+                calibrate_heads(torch, model, build_predict_fn(model, cfg),
+                                torch.tensor(batch["image"][0], device=dev),
+                                torch.tensor(batch["im_info"][0], device=dev))
         return (model, create_train_state(model, cfg, seed=0),
                 make_train_step(model, cfg, device=dev))
 
@@ -1911,21 +1954,35 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
         fail("total_loss did not move over the train steps")
     end = model.state_dict()
     still = [n for n, on in mask.items() if on and torch.equal(end[n], start[n])]
+    # an FPN leaf at zero whose momentum trace is still exactly zero got no
+    # gradient in any step (weight decay moves a non-zero leaf): the
+    # smoothing conv's bias of a level none of whose anchors or ROIs the
+    # steps sampled (P6 at 608x1024, the coarse levels of the rehearsal's
+    # image). It is excused only if the plain versions' step from the same
+    # start gives it no gradient either (checked below); a C4 or DCN family
+    # excuses nothing
+    idle = [n for n in still
+            if fpn and not start[n].any() and not state.trace[n].any()]
+    still = [n for n in still if n not in idle]
     strayed = [n for n, on in mask.items()
                if not on and not torch.equal(end[n], start[n])]
     if still or strayed:
         fail(f"trainable leaves that did not move: {still[:5]} ({len(still)}); "
              f"frozen leaves that moved: {strayed[:5]} ({len(strayed)})")
-    # two relation modules and the learned-NMS bias a dense step, the two
-    # relation modules a fused one; the bias attention once an image of a
-    # dense step; the tiny trunk has neither the conv1 stem nor a deformable
-    # res5 (three deformable convs a step)
-    want = {"geom_bias_bwd": dense_steps * B * 3 + fused_steps * B * 2,
+    # the geometric bias of the two relation modules an image, and of the
+    # learned-NMS attention an image of a dense step (a fused step fuses it);
+    # the bias attention once an image of a dense learned-NMS step; the tiny
+    # trunk has neither the conv1 stem nor a deformable res5 (three
+    # deformable convs a step)
+    rel = 2 if model.use_relation else 0
+    lnms = 1 if model.use_learn_nms else 0
+    geom = dense_steps * B * (rel + lnms) + fused_steps * B * rel
+    want = {"geom_bias_bwd": geom,
             "fused_nms_relation_attention": fused_steps * B,
-            "fused_bias_attention": dense_steps * B,
+            "fused_bias_attention": dense_steps * B * lnms,
             "stem_conv1_bn_relu": 0 if tiny else steps,
             "nms_keep_sorted": steps * B,
-            "geom_bias": dense_steps * B * 3 + fused_steps * B * 2,
+            "geom_bias": geom,
             "dconv_col2im": 3 * steps if dcn and not tiny else 0}
     short = {k: (launches[k], n) for k, n in want.items() if launches[k] < n}
     if launches["dconv_col2im"] != want["dconv_col2im"]:
@@ -1933,12 +1990,14 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     if short:
         fail(f"kernels launched too rarely in training (got, expected): {short}")
     fused_ms = f"{times[-1]:.3f}" if fused_steps else "n/a"
+    dense_ms = statistics.median(times[1:dense_steps])
     log(f"{tag} kernel path, B={B}: total_loss per step "
         f"{', '.join(f'{x:.6f}' for x in losses)}; ms/step "
         f"{', '.join(f'{x:.3f}' for x in times)}; median after one warm-up: dense "
-        f"{statistics.median(times[1:dense_steps]):.3f} ms/step, fully fused "
+        f"{dense_ms:.3f} ms/step, fully fused "
         f"{fused_ms} ms/step; peak memory {peak_gb:.3f} GiB; "
-        f"{sum(mask.values())} trainable leaves moved, "
+        f"{sum(mask.values()) - len(idle)} trainable leaves moved, {len(idle)} "
+        f"at zero with no gradient {idle}, "
         f"{len(mask) - sum(mask.values())} frozen leaves still; launches "
         f"{launches}; on {card}")
 
@@ -1973,20 +2032,26 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
         plain_m, plain_ms = one_step(step, state)
         stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
         plain_norm = update_norm(model, start)
+        fed = [n for n in idle if state.trace[n].any()]
     if stray:
         fail(f"plain train step launched kernels: {stray}")
+    if fed:
+        fail(f"leaves that got no gradient on the kernels but one on the plain "
+             f"versions: {fed}")
     worst = max((abs(first_m[k] - v) / max(abs(v), 1e-6), k)
                 for k, v in plain_m.items() if k.endswith("loss"))
     norm_err = abs(first_norm - plain_norm) / plain_norm
     ok = worst[0] <= 1e-3 and norm_err <= 1e-3
     log(f"{tag} one unclipped step{' in f32' if f32 else ''}, plain path: total_loss "
-        f"{plain_m['total_loss']:.6f} ({plain_ms:.3f} ms, first call); kernel "
+        f"{plain_m['total_loss']:.6f} ({plain_ms:.3f} ms, first call), no gradient "
+        f"either for the {len(idle)} leaves at zero; kernel "
         f"path: total_loss {first_m['total_loss']:.6f}; kernel vs plain: worst loss "
         f"{worst[1]} rel {worst[0]:.2e}, update norm {first_norm:.6e} vs "
         f"{plain_norm:.6e} rel {norm_err:.2e} (tol 1e-3) {'OK' if ok else 'FAIL'}")
     if not ok:
-        fail("the kernel train step disagrees with the plain train step")
-    return launches
+        fail(f"{family}: the kernel train step disagrees with the plain train "
+             "step")
+    return launches, dense_ms, peak_gb
 
 
 def main() -> None:
@@ -2075,8 +2140,9 @@ def main() -> None:
                                          "fused_proj_bottleneck")}
     if args.phase == "fpn":
         checks = {k: checks[k] for k in (
-            "fused_nms_relation_attention_skip", "fused_geometric_bias_skip",
-            "fused_bias_attention", "fused_bias_attention_skip")}
+            "geom_bias", "geom_bias_bwd", "fused_nms_relation_attention_skip",
+            "fused_geometric_bias_skip", "fused_bias_attention",
+            "fused_bias_attention_skip")}
     nms_ran = (nms_kernels_a_call(torch, dev)
                if args.phase in ("all", "kernels", "dcn") else {})
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
@@ -2100,15 +2166,22 @@ def main() -> None:
         add(fpn_launches)
         log("[e2e] FPN ms/image of the default request: " + ", ".join(
             f"{k} {v:.3f}" for k, v in fpn_ms.items()) + f" on {card}")
+        for family in ("fpn", "fpn_relation", "fpn_learn_nms"):
+            torch.cuda.empty_cache()
+            counts, ms, peak = run_training(torch, dev, card, family=family,
+                                            dense_steps=4, fused_steps=0)
+            add(counts)
+            log(f"[e2e] {family} train step, B=2: {ms:.3f} ms/step, peak "
+                f"memory {peak:.3f} GiB on {card}")
     if args.phase == "fpn":
         fpn_phase()
-        log(f"[done] FPN phase only: launches {launches}; no device line")
+        log(f"[done] FPN phases only: launches {launches}; no device line")
         return
     if args.phase == "all":
         flagship_launches, ms_image = run_flagship(torch, dev)
         add(flagship_launches)
         log(f"[e2e] flagship median ms/image {ms_image:.3f} on {card}")
-        add(run_training(torch, dev, card))
+        add(run_training(torch, dev, card)[0])
         torch.cuda.empty_cache()
     if args.phase in ("all", "trunk"):
         fused_launches, fused_ms, model = run_fused_flagship(torch, dev, card)
@@ -2125,7 +2198,7 @@ def main() -> None:
     log(f"[e2e] dcn_learn_nms median ms/image {dcn_ms:.3f} on {card}")
     torch.cuda.empty_cache()
     add(run_training(torch, dev, card, family="dcn_learn_nms", dense_steps=3,
-                     fused_steps=0))
+                     fused_steps=0)[0])
     if args.phase == "dcn":
         log(f"[done] DCN phases only: launches {launches}; no device line")
         return

@@ -1,12 +1,11 @@
 """Model factory and the train step (port of relation_tpu/core/trainer.py).
 
 ``build_model`` is the registry of the C4 symbols, plain and DCN, and of the
-FPN symbols (inference only so far: ``make_train_step`` raises for them).
-``create_train_state`` and ``make_train_step`` mirror the JAX entry points:
-one step is backbone (+deformable res5) -> RPN
--> anchor targets -> proposals -> ROI targets -> head (+relation) -> losses
-(+OHEM, +learned NMS) -> gradients -> SGD with momentum, on the card unless
-the caller asks for the CPU. Differences that PyTorch brings:
+FPN symbols. ``create_train_state`` and ``make_train_step`` mirror the JAX
+entry points: one step is backbone (+deformable res5, or the FPN pyramid)
+-> RPN -> anchor targets -> proposals -> ROI targets -> head (+relation) ->
+losses (+OHEM, +learned NMS) -> gradients -> SGD with momentum, on the card
+unless the caller asks for the CPU. Differences that PyTorch brings:
 
 - parameters live in the model and are updated in place; the state holds the
   momentum buffers, the step count and the random generator;
@@ -30,7 +29,8 @@ import torch
 
 from relation_tpu_torch.models.backbone import Conv2d
 from relation_tpu_torch.models.detector import RelationRCNN
-from relation_tpu_torch.models.fpn import RelationRCNNFPN
+from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
+                                           fpn_anchors, generate_proposals_fpn)
 from relation_tpu_torch.models.losses import (accuracy_ignore, learn_nms_losses,
                                               nms_accuracy, rcnn_losses,
                                               rpn_losses)
@@ -259,12 +259,14 @@ def refreeze_state(state: TrainState, cfg, fixed_prefixes,
     return dataclasses.replace(state, trace=tx.init(state.model), tx=tx)
 
 
-def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
-                    fixed_prefixes=None, no_grad: bool = False,
-                    device="cuda") -> Callable:
-    """Build the per-batch train step of a C4 symbol (plain or DCN), on
-    ``device`` (the model must live there; asking for CUDA where there is
-    none raises).
+def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
+                    stop_after: str = "", fixed_prefixes=None,
+                    no_grad: bool = False, device="cuda") -> Callable:
+    """Build the per-batch train step of a C4 symbol (plain or DCN) or of an
+    FPN symbol, on ``device`` (the model must live there; asking for CUDA
+    where there is none raises). The symbol and the model must agree: an
+    FPN symbol takes a RelationRCNNFPN, a DCN symbol a model built with the
+    DCN parts.
 
     Returns ``train_step(state, batch, priorities=None) -> (state, metrics)``.
     batch: dict(image [B, H, W, 3] or s2d [B, 12, H/2, W/2] (f32, or uint8
@@ -273,27 +275,32 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
     tensors, the batch means. The parameters and the state are updated in
     place and the same state object is returned.
 
+    The FPN step is the JAX package's FPN branch: the anchors of the five
+    levels concatenated in FPN_STRIDES order and the raw RPN outputs
+    flattened level by level in the same order (anchor targets, RPN
+    losses); proposals from ``generate_proposals_fpn`` (every level decoded,
+    one exact top-k, one NMS) on the RPN outputs without gradient; the
+    pooled head on the image's slice of the batched pyramid.
+
     ``priorities``: one dict per image, ``{"anchor": (fg [K], bg [K]),
     "sample": (fg, bg, pad, gap) each [R + G]}``, the uniform vectors that
-    rank the random subsampling ("sample" only when TRAIN.BATCH_ROIS >= 0);
-    None draws them from ``state.generator``.
+    rank the random subsampling (K: the anchors, of every level for an FPN;
+    "sample" only when TRAIN.BATCH_ROIS >= 0); None draws them from
+    ``state.generator``.
 
     ``fixed_prefixes`` overrides cfg.network.FIXED_PARAMS for the set of
     parameters that take no gradient. ``no_grad`` gives the forward-only step
     (metrics, parameters untouched). ``stop_after`` (the JAX package's
     benchmarking cuts) is not ported: anything but "" raises.
     """
-    if isinstance(model, RelationRCNNFPN):
-        raise NotImplementedError(
-            "the FPN train step comes with the next slice of the port "
-            "(ROADMAP Queue 1, item 7); FPN inference is ported")
     if stop_after:
         raise NotImplementedError(
             f"stop_after={stop_after!r}: the benchmarking cuts of the JAX "
             "train step are not ported")
-    if "fpn" in cfg.symbol:
-        raise NotImplementedError(f"{cfg.symbol}: only the C4 symbols are "
-                                  "ported (ROADMAP Queue 1, item 7)")
+    is_fpn = isinstance(model, RelationRCNNFPN)
+    if ("fpn" in cfg.symbol) != is_fpn:
+        raise ValueError(f"{cfg.symbol}: the model was built as "
+                         f"{'an FPN' if is_fpn else 'a C4'} detector")
     if ("dcn" in cfg.symbol) != bool(getattr(model, "dcn", False)):
         raise ValueError(f"{cfg.symbol}: the model was built "
                          f"{'with' if model.dcn else 'without'} the DCN parts")
@@ -304,10 +311,15 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
                          f"on {model_dev}")
     device = model_dev
     stride = int(cfg.network.RPN_FEAT_STRIDE)
-    base_anchors = generate_anchors(stride, tuple(cfg.network.ANCHOR_RATIOS),
-                                    tuple(cfg.network.ANCHOR_SCALES))
+    scales = tuple(cfg.network.ANCHOR_SCALES)
+    ratios = tuple(cfg.network.ANCHOR_RATIOS)
+    base_anchors = generate_anchors(stride, ratios, scales)
     base_anchors_t = torch.as_tensor(base_anchors, dtype=torch.float32,
                                      device=device)
+    # an FPN level's base anchors: base size = the level's stride
+    level_base = {s: torch.as_tensor(generate_anchors(s, ratios, scales),
+                                     dtype=torch.float32, device=device)
+                  for s in FPN_STRIDES} if is_fpn else None
     nongt_dim = int(cfg.TRAIN.RPN_POST_NMS_TOP_N)
     batch_rois = int(cfg.TRAIN.BATCH_ROIS)
     num_reg = 2 if cfg.CLASS_AGNOSTIC else int(cfg.dataset.NUM_CLASSES)
@@ -324,18 +336,48 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
     if fixed_prefixes is None:
         fixed_prefixes = tuple(cfg.network.FIXED_PARAMS)
     step_mask = trainable_mask(model, fixed_prefixes)
-    anchor_grids = {}
+    anchor_grids = {}              # the shifted anchors, by feature shape(s)
 
-    def per_image(feat, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
-                  generator, prio):
-        """Everything after the batched conv trunk, for one image: feat
-        [h, w, 256], rpn_cls [h, w, A, 2], rpn_bbox [h, w, A, 4]."""
+    def rpn_rows(rpn):
+        """(anchors [K, 4], rpn_cls [K, 2], rpn_bbox [K, 4]) of one image in
+        (h, w, a) order; an FPN's levels concatenated in FPN_STRIDES order."""
+        if is_fpn:
+            shapes = tuple((s, tuple(rpn[s][0].shape[:2])) for s in FPN_STRIDES)
+            if shapes not in anchor_grids:
+                grids = fpn_anchors(dict(shapes), scales, ratios, device=device)
+                anchor_grids[shapes] = torch.cat([grids[s] for s in FPN_STRIDES])
+            # raw [h, w, 2A] / [h, w, 4A]: reshape(-1, 2 or 4) gives the
+            # (h, w, a)-major rows of the C4 head's [h, w, A, 2 or 4]
+            return (anchor_grids[shapes],
+                    torch.cat([rpn[s][0].reshape(-1, 2) for s in FPN_STRIDES]),
+                    torch.cat([rpn[s][1].reshape(-1, 4) for s in FPN_STRIDES]))
+        rpn_cls, rpn_bbox = rpn
         fh, fw = rpn_cls.shape[0], rpn_cls.shape[1]
         if (fh, fw) not in anchor_grids:
             anchor_grids[fh, fw] = shift_anchors(base_anchors, fh, fw, stride,
                                                  device=device)
+        return (anchor_grids[fh, fw], rpn_cls.reshape(-1, 2),
+                rpn_bbox.reshape(-1, 4))
+
+    def proposals(rpn, im_info):
+        """The image's proposals [post_N, 4] (called without gradient)."""
+        top = (int(cfg.TRAIN.RPN_PRE_NMS_TOP_N), int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+               float(cfg.TRAIN.RPN_NMS_THRESH), float(cfg.TRAIN.RPN_MIN_SIZE))
+        if is_fpn:
+            return generate_proposals_fpn(rpn, level_base, im_info, *top)[0]
+        rpn_cls, rpn_bbox = rpn
+        return generate_proposals(torch.softmax(rpn_cls, dim=-1)[..., 1],
+                                  rpn_bbox, base_anchors_t, im_info, stride,
+                                  *top)[0]
+
+    def per_image(feat, rpn, im_info, gt_boxes, gt_valid, generator, prio):
+        """Everything after the batched conv trunk, for one image. C4: feat
+        [h, w, 256], rpn (rpn_cls [h, w, A, 2], rpn_bbox [h, w, A, 4]); FPN:
+        feat {stride: [h, w, 256]}, rpn {stride: (rpn_cls [h, w, 2A],
+        rpn_bbox [h, w, 4A])}."""
+        anchors, rpn_cls_flat, rpn_bbox_flat = rpn_rows(rpn)
         label, btgt, bwt = anchor_targets(
-            anchor_grids[fh, fw], gt_boxes, gt_valid, im_info, generator,
+            anchors, gt_boxes, gt_valid, im_info, generator,
             rpn_batch_size=int(cfg.TRAIN.RPN_BATCH_SIZE),
             fg_fraction=float(cfg.TRAIN.RPN_FG_FRACTION),
             positive_overlap=float(cfg.TRAIN.RPN_POSITIVE_OVERLAP),
@@ -343,18 +385,12 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
             clobber_positives=bool(cfg.TRAIN.RPN_CLOBBER_POSITIVES),
             bbox_weights=tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
             priorities=None if prio is None else prio["anchor"])
-        rpn_cls_flat = rpn_cls.reshape(-1, 2)
         rpn_cls_loss, rpn_bbox_loss = rpn_losses(
-            rpn_cls_flat, rpn_bbox.reshape(-1, 4), label, btgt, bwt,
+            rpn_cls_flat, rpn_bbox_flat, label, btgt, bwt,
             int(cfg.TRAIN.RPN_BATCH_SIZE), sigma=float(cfg.TRAIN.rpn_loss_scale))
 
         with torch.no_grad():
-            rois, _, _ = generate_proposals(
-                torch.softmax(rpn_cls, dim=-1)[..., 1], rpn_bbox,
-                base_anchors_t, im_info, stride,
-                int(cfg.TRAIN.RPN_PRE_NMS_TOP_N),
-                int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
-                float(cfg.TRAIN.RPN_NMS_THRESH), float(cfg.TRAIN.RPN_MIN_SIZE))
+            rois = proposals(rpn, im_info)
             tgt = sample_rois(
                 rois, torch.ones(rois.shape[0], dtype=torch.bool, device=device),
                 gt_boxes, gt_valid, generator,
@@ -421,12 +457,19 @@ def make_train_step(model: RelationRCNN, cfg, stop_after: str = "",
                 image = torch.stack([_image_from_u8(image[b], im_info[b],
                                                     pixel_means)
                                      for b in range(B)])
-            feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
+            if is_fpn:
+                pyramid, rpn_out = model.features_and_rpn(image)
+                feats = [{s: f[b] for s, f in pyramid.items()} for b in range(B)]
+                rpns = [{s: (c[b], r[b]) for s, (c, r) in rpn_out.items()}
+                        for b in range(B)]
+            else:
+                feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
+                feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
             totals, per = [], []
             for b in range(B):
                 tot, m = per_image(
-                    feat[b], rpn_cls[b], rpn_bbox[b], im_info[b], gt_boxes[b],
-                    gt_valid[b], state.generator,
+                    feats[b], rpns[b], im_info[b], gt_boxes[b], gt_valid[b],
+                    state.generator,
                     None if priorities is None else priorities[b])
                 totals.append(tot)
                 per.append(m)

@@ -14,9 +14,15 @@ multiplies dense [256, H*W] tiles because it cannot scatter). There is no
 padding of the sample count and no separate transpose: ``d`` arrives in the
 order the dcol matrix product writes it and ``dx`` leaves as NHWC.
 
-The kernel adds with f32 atomics (red.global.add.v4.f32), so the last bits of
-``dx`` change from run to run; the plain version (index_add_) is
-deterministic on the CPU.
+The kernel turns the scatter into a gather: the samples are binned by the
+cell of their top-left corner (an integer atomic gives a slot in the cell's
+bucket of CELL_CAP, or one in a spill list), then one warp a pixel sums the
+buckets of its four cells and stores each element of ``dx`` once (no
+memset), and a last pass adds the spilled samples of crowded cells with f32
+atomics; tests/test_torch_col2im.py sums in the kernel's order on the CPU.
+The samples of a cell come in the order the atomics rank them, so the last
+bits of ``dx`` may change from run to run; the plain version (index_add_)
+is deterministic on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from relation_tpu_torch.ops.kernels import _build
 
 launches = 0          # kernel launches of dconv_col2im (CUDA only)
+CELL_CAP = 32         # samples a cell's bucket holds (csrc/dconv_col2im.cu::kCap)
 
 
 def corner_weights(yz: torch.Tensor, xz: torch.Tensor, inside: torch.Tensor,
@@ -67,15 +74,24 @@ def dconv_col2im_reference(yz: torch.Tensor, xz: torch.Tensor,
     return out.view(B, H, W, G * cg)
 
 
-def _launch(yz, xz, inside, d, H: int, W: int) -> torch.Tensor:
+def _launch(yz, xz, inside, d, H: int, W: int, dx=None) -> torch.Tensor:
+    """The kernel's dx, written into ``dx`` [B, H, W, G * cg] f32 where it is
+    given (tools/ablate_col2im.py passes one filled with NaN)."""
     B, S, G, cg = d.shape
-    dx = torch.zeros((B, H, W, G * cg), dtype=torch.float32, device=d.device)
+    nc = (H + 1) * (W + 1)
+    f32 = dict(dtype=torch.float32, device=d.device)
+    counts = torch.empty(B * G * (nc + 1), dtype=torch.int32, device=d.device)
+    bucket = torch.empty((B * G * nc * CELL_CAP, 4), **f32)
+    spill = torch.empty((B * G * S, 4), **f32)
+    if dx is None:
+        dx = torch.empty((B, H, W, G * cg), **f32)
     fn = _build.load("dconv_col2im").dconv_col2im
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
     _build.check(fn(_build.ptr(yz), _build.ptr(xz), _build.ptr(inside),
                     _build.ptr(d), int(d.dtype == torch.bfloat16), B, S, G, cg,
-                    int(H), int(W), _build.ptr(dx), _build.stream_ptr(d.device)),
+                    int(H), int(W), _build.ptr(counts), _build.ptr(bucket),
+                    _build.ptr(spill), _build.ptr(dx), _build.stream_ptr(d.device)),
                  "dconv_col2im")
     return dx
 

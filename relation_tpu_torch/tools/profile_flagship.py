@@ -27,9 +27,10 @@ split form for fpn_learn_nms), warms up, then:
    forward and backward.
 
 With --train it profiles --requests train steps instead (B=2, the batch and
-the clip of chip_smoke.py's training phase, after two warm-up steps): wall
-time, device busy time, idle share, and the operations ranked by device time
-and by host time.
+the clip of chip_smoke.py's training phase, after two warm-up steps; any
+family, an FPN one calibrated as above): wall time, device busy time, idle
+share, the operations ranked by device time and by host time, and the
+indexing operations (index_put and the like, forward and backward).
 
 Prints the card's name and power limit first. Needs a CUDA card and
 chip_smoke.py beside the package (its seeding and timing helpers).
@@ -117,8 +118,9 @@ def report(torch, prof, wall_us: float, n: int, unit: str) -> None:
 
 
 def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
-    from chip_smoke import seed_offsets, training_batch
+    from chip_smoke import calibrate_heads, seed_offsets, training_batch
     from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  make_train_step)
     from relation_tpu_torch.entry import BUCKET, family_cfg
@@ -127,7 +129,11 @@ def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
     cfg.TPU.GRAD_CLIP = 10.0
     batch = training_batch(*BUCKET)
     model = init_params(build_model(cfg, device=dev), seed=0)
-    if model.dcn:
+    if family.startswith("fpn"):
+        calibrate_heads(torch, model, build_predict_fn(model, cfg),
+                        torch.tensor(batch["image"][0], device=dev),
+                        torch.tensor(batch["im_info"][0], device=dev))
+    elif model.dcn:
         seed_offsets(torch, model, cfg, batch["image"][0], batch["im_info"][0])
     state = create_train_state(model, cfg, seed=0)
     step = make_train_step(model, cfg, device=dev)
@@ -148,6 +154,12 @@ def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
     print("top host time per step (us): " + "; ".join(
         f"{r.key[:60]} {r.self_cpu_time_total / steps:.1f} (x{r.count // steps})"
         for r in rows[:12]))
+    # the indexing ops and their backward (the FPN head's pooled ROIs are put
+    # back in their order with an index_put)
+    print("indexing ops per step (us, device / host): " + "; ".join(
+        f"{r.key[:60]} {r.self_device_time_total / steps:.1f} / "
+        f"{r.self_cpu_time_total / steps:.1f} (x{r.count // steps})"
+        for r in rows if "index" in r.key.lower()))
 
 
 def main():

@@ -13,7 +13,8 @@ DCN ``run_training`` with ``tiny=True`` (tiny trunk, 64x128 image; the tiny
 trunk has no res5, so the DCN rehearsal covers the deformable PSROI head, the
 classic NMS tail and the offset seeding, not the deformable conv), then
 ``run_fused_flagship``, ``run_fused_trunk`` and ``run_fpn`` (the full-depth
-trunk and FPN models, as entry() builds them, on a 64x128 image). It prints
+trunk and FPN models, as entry() builds them, on a 64x128 image), then the
+FPN ``run_training`` of the three families with ``tiny=True``. It prints
 what the script prints; its times are CPU times and mean nothing.
 """
 
@@ -104,6 +105,9 @@ def main() -> None:
     chip_smoke.run_fused_trunk(torch, cpu, model, card=card, tiny=True)
     del model
     chip_smoke.run_fpn(torch, cpu, card=card, tiny=True)
+    for family in ("fpn", "fpn_relation", "fpn_learn_nms"):
+        chip_smoke.run_training(torch, cpu, card=card, tiny=True, family=family,
+                                dense_steps=4, fused_steps=0)
     print("rehearsal done: control flow only, no kernel ran")
 
 

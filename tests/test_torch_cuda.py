@@ -405,10 +405,12 @@ def _col2im_case(rng, dev, B, H, W, G, cg, S, dtype):
     (1, 6, 9, 2, 4, 301),             # cg 4: one 16-byte chunk a sample
     (3, 4, 5, 1, 3, 77),              # cg 3: the scalar path
     (1, 38, 64, 4, 128, 1000),        # the res5 map, few samples
+    (1, 100, 64, 4, 128, 20000),      # a map taller than the res5 map
+    (2, 3, 2000, 1, 8, 6000),         # a very wide map: many cells a (b, g)
 ])
 def test_col2im_kernel_matches_plain(dev, dtype, B, H, W, G, cg, S):
-    """1e-5 of the largest element (f32 sums in another order, by atomics on
-    both sides); pixels out of every sample's reach exactly zero."""
+    """1e-5 of the largest element (f32 sums in another order: the gather
+    against index_add_); pixels out of every sample's reach exactly zero."""
     rng = np.random.RandomState(H * W + cg)
     yz, xz, inside, d = _col2im_case(rng, dev, B, H, W, G, cg, S, dtype)
     before = DC.launches
@@ -426,6 +428,29 @@ def test_col2im_kernel_matches_plain(dev, dtype, B, H, W, G, cg, S):
     assert bool((got.view(B, H, W, G, cg)[cover == 0] == 0).all())
     none = DC.dconv_col2im(yz, xz, torch.zeros_like(inside), d, H, W)
     assert not bool(none.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_col2im_kernel_on_crowded_cells(dev, dtype):
+    """Most samples in a few cells (hundreds of samples a cell: the buckets
+    full, the rest added by the spill pass) and the rest spread: within
+    1e-5 of the largest element of the plain version; the pixels of no cell
+    exactly zero."""
+    rng = np.random.RandomState(17)
+    B, H, W, G, cg, S = 2, 6, 9, 2, 12, 3000
+    yz, xz, inside, d = _col2im_case(rng, dev, B, H, W, G, cg, S, dtype)
+    crowd = torch.rand(B, S, G, device=dev) < 0.7
+    yz = torch.where(crowd, 2.25 + 0.5 * torch.rand(B, S, G, device=dev), yz)
+    xz = torch.where(crowd, 3.1 + 0.8 * torch.rand(B, S, G, device=dev), xz)
+    inside = inside | crowd
+    got = DC.dconv_col2im(yz, xz, inside, d, H, W)
+    want = DC.dconv_col2im_reference(yz, xz, inside, d, H, W)
+    torch.cuda.synchronize()
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * top
+    cover = DC.dconv_col2im_reference(yz, xz, inside, torch.ones_like(d[..., :1]),
+                                      H, W)
+    assert bool((got.view(B, H, W, G, cg)[cover == 0] == 0).all())
 
 
 def test_col2im_wrapper_refusals(dev):

@@ -385,7 +385,7 @@ def test_entry_and_build_predict_fn_dispatch():
     other families: single module), and entry("fpn_learn_nms") serves the
     full-width model through it on the CPU when asked (built, not run); the
     split forms refuse a model they do not apply to, and so does the tail
-    override on a C4 model; make_train_step still raises for FPN."""
+    override on a C4 model; make_train_step builds the FPN step and runs it."""
     from relation_tpu_torch.core import predictor as P
     from relation_tpu_torch.core.trainer import build_model, make_train_step
     from relation_tpu_torch.entry import entry, family_cfg as port_family_cfg
@@ -426,8 +426,15 @@ def test_entry_and_build_predict_fn_dispatch():
     with pytest.raises(ValueError, match="FPN model only"):
         make_predict_fn(build_model(c4_cfg, tiny=True, device="cpu"), c4_cfg,
                         tail_allow_pallas=True)
-    with pytest.raises(NotImplementedError, match="FPN"):
-        make_train_step(model, cfg, device="cpu")
+    # the FPN step builds and runs (tests/test_torch_fpn_train.py holds it
+    # to the JAX step)
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.trainer import create_train_state
+    from tests.test_golden_train import _fixed_batch
+    init_params(model, seed=3)
+    state, m = make_train_step(model, cfg, device="cpu")(
+        create_train_state(model, cfg), _fixed_batch())
+    assert state.step == 1 and np.isfinite(float(m["total_loss"]))
 
 
 def test_convert_round_trip_and_init_params_on_the_fpn_tree():

@@ -699,8 +699,8 @@ def test_fully_fused_step_equals_the_dense_step(jax_step):
 
 def test_train_step_entry_points_refuse_and_repeat():
     """make_train_step defaults to the card and raises where there is none;
-    FPN symbols, a DCN symbol for a model built without the DCN parts, the
-    stop_after cuts and a learned-NMS config with sampled rois raise; a second step moves the parameters again and lowers
+    an FPN symbol for a C4 model, a DCN symbol for a model built without the
+    DCN parts, the stop_after cuts and a learned-NMS config with sampled rois raise; a second step moves the parameters again and lowers
     nothing to NaN; no_grad leaves the parameters alone; generator-drawn
     priorities repeat under one seed; uint8 images take the device-side
     mean subtraction."""
@@ -719,8 +719,8 @@ def test_train_step_entry_points_refuse_and_repeat():
     with pytest.raises(ValueError, match="BATCH_ROIS"):
         make_train_step(model, bad, device="cpu")
     bad = cfg.copy()
-    bad.symbol = bad.symbol.replace("rcnn", "rcnn_fpn")
-    with pytest.raises(NotImplementedError):
+    bad.symbol = bad.symbol.replace("rcnn", "rcnn_fpn")     # a C4 model
+    with pytest.raises(ValueError, match="C4"):
         make_train_step(model, bad, device="cpu")
     bad.symbol = cfg.symbol.replace("rcnn", "rcnn_dcn")     # a non-DCN model
     with pytest.raises(ValueError, match="DCN"):

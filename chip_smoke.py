@@ -6,13 +6,17 @@
     python3 chip_smoke.py --phase dcn      # build, kernel checks, DCN phases only
     python3 chip_smoke.py --phase trunk    # build, trunk kernel checks, phases 8-9
     python3 chip_smoke.py --phase fpn      # build, FPN kernel checks, phases 10-11
+    python3 chip_smoke.py --phase workflow # build, rows 1, 2, 4, 5, 7, phase 12
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
 2. Holds each of the twelve kernels against its plain PyTorch version on
    the card, at the shapes the driven models give it (the geometric bias at
-   its four launch shapes; the NMS at the
-   proposal shape and at the classic tail's C=80, Np=512, one kernel on the
+   its six launch shapes, its backward at four, among them the alternate
+   workflow's head over 1016 rows against 300 keys and predict_rcnn's over
+   1000 x 1000; the NMS at the end-to-end proposal shape, at the proposal
+   dump's 20000 boxes with 2000 kept, and at the classic tail's C=80,
+   Np=512, one kernel on the
    card a call (counted in one torch.profiler trace taken before the
    checks) that allocates its keep mask and nothing else; the stem, bit
    for bit as well; the fused attention at N=100 over every class and with
@@ -89,7 +93,22 @@
    relation modules, C=80 N=150 in the learned-NMS branch) and the bias
    attention (fpn_learn_nms) launched as each family runs them. Prints
    ms/step and peak memory.
-12. Prints the launches of rows 1, 2, 4, 7 and 9 by shape, one JSON line
+12. Runs fpn_learn_nms through the alternate (cached-proposal) workflow at
+   full width (core/rpn_workflow.py; the YAML's TEST.PROPOSAL_* 20000 ->
+   2000, TOP_ROIS 1000, FIXED_PARAMS_SHARED; calibrated, three seeded images
+   of three boxes): two RPN-only steps; the proposal dump over the three
+   images into a pickle (the NMS at 20000 boxes, 2000 kept), its top 300
+   held to the plain path's; recall, the proposal roidb and the bbox-target
+   statistics; three RCNN steps on the cached ROIs with train_shared (the
+   FIXED_PARAMS_SHARED leaves bit-equal, every other trainable leaf moves,
+   rows 1, 2 and 7 launched) and one unclipped step against the plain
+   versions at 1e-3; the checkpoint written and restored into a freshly
+   built model bit for bit; predict_rcnn from it held to the plain path and
+   to the trained model in the bands of phase 4 (at score threshold 0: the
+   three steps leave no class score above 1e-3), its merged scores within
+   1e-3 of the plain path's largest. Prints ms/step of both steps, the
+   dump's and predict_rcnn's ms/image and peak memory.
+13. Prints the launches of rows 1, 2, 4, 7 and 9 by shape, one JSON line
    describing every kernel (launches summed over the driven paths), then
    the device line.
 
@@ -209,6 +228,16 @@ def check_geom_bias(torch, dev, rng):
             torch.tensor(np.stack([random_boxes(rng2, 150) for _ in range(80)], 1),
                          device=dev)),
     })
+    # the alternate workflow's (phase 12): the RCNN step's head over 1000
+    # cached ROIs + 16 ground-truth rows against 300 keys, and predict_rcnn's
+    # over 1000 ROIs, every one a key
+    rng3 = np.random.RandomState(13)
+    shapes.update({
+        "rcnn C=1 N=1016 M=300": extract_position_matrix_t(
+            torch.tensor(random_boxes(rng3, 1016), device=dev), 300)[None],
+        "predict_rcnn C=1 N=M=1000": extract_position_matrix_t(
+            torch.tensor(random_boxes(rng3, 1000), device=dev), 1000)[None],
+    })
     json_shape = "lnms C=80 N=M=100"
     result = None
     for label, pos in shapes.items():
@@ -263,6 +292,11 @@ def check_geom_bias_bwd(torch, dev, rng):
         "lnms C=80 N=M=150": extract_multi_position_matrix_t(
             torch.tensor(np.stack([random_boxes(rng, 150) for _ in range(80)], 1),
                          device=dev)),
+        # the alternate workflow's RCNN step (phase 12): 1000 cached ROIs +
+        # 16 ground-truth rows against 300 keys, twice per image
+        "rcnn C=1 N=1016 M=300": extract_position_matrix_t(
+            torch.tensor(random_boxes(np.random.RandomState(14), 1016),
+                         device=dev), 300)[None],
     }
     result = None
     for label, pos in shapes.items():
@@ -364,7 +398,8 @@ def nms_kernels_a_call(torch, dev) -> dict:
     rng = np.random.RandomState(10)
     calls = {}
     for C, n, np_pad, max_keep, thresh in ((1, 6000, 6144, 300, 0.7),
-                                           (80, 300, 512, 100, 0.3)):
+                                           (80, 300, 512, 100, 0.3),
+                                           (1, 20000, 20224, 2000, 0.7)):
         bT = np.zeros((C, 4, np_pad), np.float32)
         valid = np.zeros((C, np_pad), np.float32)
         for c in range(C):
@@ -399,9 +434,21 @@ def nms_kernels_a_call(torch, dev) -> dict:
 
 
 def check_nms(torch, dev, rng, ran):
+    """nms_keep_sorted at the end-to-end proposals' shape (6000 boxes, 300
+    kept; in the JSON line), then at the proposal dump's of the alternate
+    workflow (TEST.PROPOSAL_*: 20000 boxes, 2000 kept), on boxes of its own
+    stream. ``ran``: {"C= Np=": the kernels a call put on the card}."""
+    result = _check_nms(torch, dev, rng, ran["C=1 Np=6144"], 6000, 300, 25)
+    _check_nms(torch, dev, np.random.RandomState(12), ran["C=1 Np=20224"],
+               20000, 2000, 200)
+    return result
+
+
+def _check_nms(torch, dev, rng, ran, n, max_keep, clusters):
     from relation_tpu_torch.ops.kernels import nms_kernel as K
-    n, np_pad, block, max_keep, thresh = 6000, 6144, 256, 300, 0.7
-    boxes = random_boxes(rng, n, clusters=25)
+    block, thresh = 256, 0.7
+    np_pad = -(-n // block) * block
+    boxes = random_boxes(rng, n, clusters=clusters)
     # the boxes stand in a random score order, already sorted: the NMS
     # input contract
     bT = np.zeros((1, 4, np_pad), np.float32)
@@ -1916,20 +1963,12 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
         ms = (time.perf_counter() - t0) * 1e3
         return {k: float(v) for k, v in m.items()}, ms
 
-    def update_norm(model, before):
-        sq = sum(float(((p.detach().double() - before[n].double()) ** 2).sum())
-                 for n, p in model.named_parameters())
-        return sq ** 0.5
-
-    def snapshot(model):
-        return {n: v.detach().clone() for n, v in model.state_dict().items()}
-
     # init_params leaves every BatchNorm at identity, so the random trunk's
     # activations reach several hundred and an unclipped second step
     # diverges: the five steps run with the trainer's global-norm clip
     # (TPU.GRAD_CLIP) at 10; the one-step comparison below runs without it
     model, state, step = fresh(10.0)
-    start = snapshot(model)
+    start = _snapshot(model)
     mask = trainable_mask(model, tuple(family_cfg(family).network.FIXED_PARAMS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2016,7 +2055,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     zero_counters()
     first_m, _ = one_step(step, state)
     first_launches = read_launches()
-    first_norm = update_norm(model, start)
+    first_norm = _update_norm(model, start)
     del model, state, step
     # a dense step, so every kernel of the clipped dense steps but the stem
     # in f32
@@ -2031,7 +2070,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
         zero_counters()
         plain_m, plain_ms = one_step(step, state)
         stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
-        plain_norm = update_norm(model, start)
+        plain_norm = _update_norm(model, start)
         fed = [n for n in idle if state.trace[n].any()]
     if stray:
         fail(f"plain train step launched kernels: {stray}")
@@ -2054,9 +2093,398 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     return launches, dense_ms, peak_gb
 
 
+# --------------------------------------------------------------------------
+# phase 12: the alternate (cached-proposal) workflow
+# --------------------------------------------------------------------------
+
+def match_proposals(ref, new, top: int = 300):
+    """Each of the ``top`` best proposals of ``ref`` ([N, 5], descending
+    score) matched by one of ``new`` at IoU >= 0.95 with |score delta| <=
+    2e-2 (after NMS at 0.7 a match is unique). Returns a list of errors."""
+    errs = []
+    if not len(new):
+        return ["no proposals"] if len(ref) else []
+    for i, g in enumerate(ref[:top]):
+        ious = iou(g[:4], new[:, :4])
+        j = int(np.argmax(ious))
+        if ious[j] < IOU_MIN:
+            errs.append(f"proposal {i}: best IoU {ious[j]:.3f}")
+        elif abs(new[j, 4] - g[4]) > SCORE_ATOL:
+            errs.append(f"proposal {i}: score {new[j, 4]:.4f} vs {g[4]:.4f}")
+    return errs
+
+
+def launches_since(before: dict) -> dict:
+    """The launch counts (and by shape) added since ``before``
+    (``read_launches()``), those that moved only."""
+    return {k: v - before.get(k, 0) for k, v in read_launches().items()
+            if v != before.get(k, 0)}
+
+
+def _snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _update_norm(model, before) -> float:
+    return sum(float(((p.detach().double() - before[k].double()) ** 2).sum())
+               for k, p in model.named_parameters()) ** 0.5
+
+
+def workflow_setup(torch, dev, tiny: bool = False):
+    """The set-up of phase 12: fpn_learn_nms's config (entry.py::family_cfg,
+    TPU.GRAD_CLIP 10), the three seeded images of ``training_batch`` (the
+    batch, its ``(id, image, im_info)`` items and its ground-truth roidb)
+    and the model, init_params(seed=0) weights with calibrated prediction
+    layers. ``tiny``: the tiny trunk on 64x128 images and cut proposal
+    counts. Returns ``(cfg, data, items, roidb, model)``."""
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import build_predict_fn
+    from relation_tpu_torch.core.trainer import build_model
+    from relation_tpu_torch.entry import BUCKET, family_cfg
+    H, W = (64, 128) if tiny else BUCKET
+    data = training_batch(H, W, B=3)
+    cfg = family_cfg("fpn_learn_nms", tiny_shapes=tiny)
+    cfg.TPU.GRAD_CLIP = 10.0
+    items = [(i, data["image"][i], data["im_info"][i]) for i in range(3)]
+    roidb = []
+    for i in range(3):
+        gt = data["gt_boxes"][i][data["gt_valid"][i]]
+        roidb.append({"image": f"seeded_{i}", "boxes": gt[:, :4],
+                      "gt_classes": gt[:, 4].astype(np.int32),
+                      "iscrowd": np.zeros(len(gt), bool)})
+    model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+    calibrate_heads(torch, model, build_predict_fn(model, cfg),
+                    torch.tensor(items[0][1], device=dev),
+                    torch.tensor(items[0][2], device=dev))
+    torch.cuda.synchronize()
+    return cfg, data, items, roidb, model
+
+
+def workflow_batch(data, i: int, **extra) -> dict:
+    """Image ``i`` of ``data`` as a one-image batch, with ``extra`` arrays
+    (the cached ROIs) given their batch axis."""
+    b = {k: data[k][i:i + 1] for k in ("image", "im_info", "gt_boxes",
+                                        "gt_valid")}
+    b.update({k: v[None] for k, v in extra.items()})
+    return b
+
+
+def cached_rois(prop_roidb, data, i: int, R: int):
+    """Image ``i``'s cached proposals (``load_proposal_roidb``, original-image
+    coordinates) scaled to the network input by im_info[2] and padded to
+    ``R`` rows: ``(rois [R, 4], rois_valid [R])``."""
+    p = prop_roidb[i]["proposals"] * float(data["im_info"][i][2])
+    rois = np.zeros((R, 4), np.float32)
+    rois[:len(p)] = p[:R]
+    return rois, np.arange(R) < len(p)
+
+
+def run_workflow(torch, dev, card: str = "", tiny: bool = False):
+    """Phase 12: fpn_learn_nms through the alternate workflow at full width
+    (entry.py::family_cfg with the YAML's TEST.PROPOSAL_* 20000 -> 2000,
+    TOP_ROIS 1000, FIXED_PARAMS_SHARED, one image a batch), init_params
+    weights with calibrated prediction layers, the three seeded images of
+    ``training_batch`` (three boxes each), steps under TPU.GRAD_CLIP 10:
+    (a) two RPN-only steps; (b) the proposal dump over the three images into
+    a pickle, kernel path against plain path; (c) recall, the proposal
+    roidb and the bbox-target statistics on the host; (d) three RCNN steps
+    on the cached proposals with train_shared (FIXED_PARAMS_SHARED leaves
+    bit-equal, every other trainable leaf moves), then one unclipped step
+    from the stage's start on the kernels against the plain versions within
+    1e-3; (e) the checkpoint written and restored into a freshly built
+    model, bit-equal; (f) predict_rcnn from the restored model on image 0's
+    cached proposals at score threshold 0, held to the plain path and to the
+    trained model's detections in the bands of phase 4, its merged scores to
+    the plain path's within 1e-3 of their largest. ``tiny`` (a rehearsal on the CPU)
+    takes the tiny trunk, a 64x128 image and cut proposal counts. Returns
+    the launches of the kernel path."""
+    import pickle
+    import tempfile
+
+    from relation_tpu_torch.core.checkpoint import (load_params,
+                                                    restore_checkpoint,
+                                                    save_checkpoint, save_params)
+    from relation_tpu_torch.core.predictor import make_predict_fn_rcnn
+    from relation_tpu_torch.core.rpn_workflow import (add_bbox_regression_stats,
+                                                      evaluate_recall,
+                                                      generate_rpn_proposals,
+                                                      load_proposal_roidb,
+                                                      make_train_step_rcnn,
+                                                      make_train_step_rpn)
+    from relation_tpu_torch.core.trainer import (build_model, create_train_state,
+                                                 refreeze_state, trainable_mask)
+    tag = "[workflow fpn_learn_nms]"
+
+    def timed(fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    cfg, data, items, roidb, model = workflow_setup(torch, dev, tiny)
+    if tiny:
+        cfg.TEST.SCORE_THRESH = 0.0
+    max_gt = data["gt_boxes"].shape[1]
+    shared = tuple(cfg.network.FIXED_PARAMS_SHARED)
+    R = int(cfg.TRAIN.TOP_ROIS)
+    log(f"{tag} built and calibrated: {sum(p.numel() for p in model.parameters())} "
+        f"params, {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_")
+
+    # (a) the RPN alone
+    state = create_train_state(model, cfg, seed=0)
+    rpn_step = make_train_step_rpn(model, cfg, max_gt=max_gt, device=dev)
+    rpn_hist, rpn_ms = [], []
+    for _ in range(2):
+        (state, m), ms = timed(rpn_step, state, workflow_batch(data, 0))
+        rpn_hist.append({k: float(v) for k, v in m.items()})
+        rpn_ms.append(ms)
+    bad = [k for m in rpn_hist for k, v in m.items() if not np.isfinite(v)]
+    if bad or rpn_hist[1]["total_loss"] == rpn_hist[0]["total_loss"]:
+        fail(f"{tag} RPN steps: non-finite {bad} or a loss that did not move "
+             f"({[m['total_loss'] for m in rpn_hist]})")
+    log(f"{tag} (a) RPN steps: total_loss {rpn_hist[0]['total_loss']:.6f} -> "
+        f"{rpn_hist[1]['total_loss']:.6f}; ms/step {rpn_ms[0]:.3f} (first), "
+        f"{rpn_ms[1]:.3f} on {card}")
+
+    # (b) the proposal dump, kernel path then plain path
+    pkl = os.path.join(tmp.name, "train_rpn.pkl")
+    before = read_launches()
+    generate_rpn_proposals(model, cfg, roidb[:1], pkl, loader=items[:1],
+                           device=dev)                       # warm-up
+    _, dump_ms = timed(generate_rpn_proposals, model, cfg, roidb, pkl,
+                       loader=items, device=dev)
+    nms_shapes = {k.split("@", 1)[1]: v for k, v in launches_since(before).items()
+                  if k.startswith("nms_keep_sorted@")}
+    with open(pkl, "rb") as f:
+        props = pickle.load(f)
+    plain_pkl = os.path.join(tmp.name, "plain_rpn.pkl")
+    with plain_kernels():
+        before = read_launches()
+        generate_rpn_proposals(model, cfg, roidb, plain_pkl, loader=items,
+                               device=dev)
+        stray = launches_since(before)
+    if stray:
+        fail(f"{tag} the plain proposal dump launched kernels: {stray}")
+    with open(plain_pkl, "rb") as f:
+        plain_props = pickle.load(f)
+    errs = [f"image {i}: {e}" for i, (p, q) in enumerate(zip(plain_props, props))
+            for e in match_proposals(p, q)]
+    # 20000 boxes of the 155,520 anchors, padded to 256-box chunks
+    want_shape = "C=1 Np=128" if tiny else "C=1 Np=20224"
+    log(f"{tag} (b) proposal dump: {[len(p) for p in props]} proposals an image "
+        f"(plain path {[len(p) for p in plain_props]}); "
+        f"{dump_ms / len(items):.3f} ms/image on {card}; NMS launches by shape "
+        f"{nms_shapes}; kernel vs plain top-300 (IoU>={IOU_MIN}, "
+        f"|ds|<={SCORE_ATOL}): {'OK' if not errs else f'{len(errs)} mismatches'}")
+    if errs:
+        for e in errs[:20]:
+            log(f"  {e}")
+        fail(f"{tag} kernel-path proposals outside the bands of the plain path")
+    if nms_shapes != {want_shape: len(items) + 1}:
+        fail(f"{tag} the proposal dump's NMS launches {nms_shapes}, not "
+             f"{len(items) + 1} at {want_shape}")
+    if any(not np.isfinite(p).all() or p.shape[1] != 5 or len(p) == 0
+           for p in props):
+        fail(f"{tag} the proposal pickle holds empty or non-finite arrays")
+
+    # (c) recall, the proposal roidb and the bbox-target statistics
+    rec = evaluate_recall(roidb, props)
+    prop_roidb = load_proposal_roidb(roidb, pkl, top_rois=R)
+    means, stds = add_bbox_regression_stats(
+        prop_roidb, int(cfg.dataset.NUM_CLASSES), bool(cfg.CLASS_AGNOSTIC),
+        float(cfg.TRAIN.BBOX_REGRESSION_THRESH))
+    if not (np.isfinite(rec["ar"]) and np.isfinite(means).all()
+            and np.isfinite(stds).all()):
+        fail(f"{tag} non-finite recall or bbox-target statistics")
+    log(f"{tag} (c) recall over {rec['num_gt']} boxes: AR {rec['ar']:.4f}, "
+        f"recall at IoU 0.5 {rec['recalls'][0]:.4f}, 0.7 {rec['recalls'][4]:.4f}; "
+        f"{[len(e['proposals']) for e in prop_roidb]} cached ROIs an image "
+        f"(TOP_ROIS {R}); target means {np.round(means[1], 4).tolist()} stds "
+        f"{np.round(stds[1], 4).tolist()}")
+
+    def rois_of(i):
+        return cached_rois(prop_roidb, data, i, R)
+
+    def rcnn_batch(i):
+        rois, valid = rois_of(i)
+        return workflow_batch(data, i, rois=rois, rois_valid=valid)
+
+    # (d) the RCNN head on the cached proposals, the trunk shared
+    state = refreeze_state(state, cfg, shared)
+    start = _snapshot(model)
+    mask = trainable_mask(model, shared)
+    rcnn_step = make_train_step_rcnn(model, cfg, max_rois=R, max_gt=max_gt,
+                                     train_shared=True, device=dev)
+    before = read_launches()
+    hist, times = [], []
+    for i in range(3):
+        (state, m), ms = timed(rcnn_step, state, rcnn_batch(i))
+        hist.append({k: float(v) for k, v in m.items()})
+        times.append(ms)
+    step_launches = launches_since(before)
+    losses = [m["total_loss"] for m in hist]
+    bad = [k for m in hist for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"{tag} RCNN steps: non-finite {bad}; total_loss {losses}")
+    end = model.state_dict()
+    strayed = [k for k, on in mask.items() if not on and not torch.equal(end[k], start[k])]
+    still = [k for k, on in mask.items() if on and torch.equal(end[k], start[k])]
+    # phase 11's excuse: an FPN leaf at zero whose trace is still zero got no
+    # gradient (checked against the plain step below)
+    idle = [k for k in still if not start[k].any() and not state.trace[k].any()]
+    still = [k for k in still if k not in idle]
+    if strayed or still:
+        fail(f"{tag} FIXED_PARAMS_SHARED leaves that moved: {strayed[:5]} "
+             f"({len(strayed)}); trainable leaves that did not: {still[:5]} "
+             f"({len(still)})")
+    short = [k for k in ("geom_bias", "geom_bias_bwd", "fused_bias_attention")
+             if step_launches.get(k, 0) <= 0]
+    if short:
+        fail(f"{tag} the RCNN steps never launched {short}")
+    rcnn_ms = statistics.median(times[1:])
+    log(f"{tag} (d) RCNN steps, train_shared: total_loss "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; ms/step "
+        f"{', '.join(f'{x:.3f}' for x in times)}, median after one warm-up "
+        f"{rcnn_ms:.3f}; {sum(mask.values()) - len(idle)} trainable leaves moved, "
+        f"{len(idle)} at zero with no gradient {idle}, "
+        f"{len(mask) - sum(mask.values())} FIXED_PARAMS_SHARED leaves bit-equal; "
+        f"launches {step_launches}; on {card}")
+
+    def fresh_rcnn():
+        c = cfg.copy()
+        c.TPU.GRAD_CLIP = 0.0
+        m = build_model(c, tiny=tiny, device=dev)
+        m.load_state_dict(start)
+        st = refreeze_state(create_train_state(m, c, seed=0), c, shared)
+        return m, st, make_train_step_rcnn(m, c, max_rois=R, max_gt=max_gt,
+                                           train_shared=True, device=dev)
+    m3, st3, step3 = fresh_rcnn()
+    _, k_m = step3(st3, rcnn_batch(0))
+    k_m = {k: float(v) for k, v in k_m.items()}
+    k_norm = _update_norm(m3, start)
+    del m3, st3, step3
+    with plain_kernels():
+        before = read_launches()
+        m4, st4, step4 = fresh_rcnn()
+        _, p_m = step4(st4, rcnn_batch(0))
+        p_m = {k: float(v) for k, v in p_m.items()}
+        p_norm = _update_norm(m4, start)
+        fed = [k for k in idle if st4.trace[k].any()]
+        stray = launches_since(before)
+        del m4, st4, step4
+    if stray or fed:
+        fail(f"{tag} plain RCNN step launched kernels {stray}, or gave a "
+             f"gradient to the excused leaves {fed}")
+    worst = max((abs(k_m[k] - v) / max(abs(v), 1e-6), k)
+                for k, v in p_m.items() if k.endswith("loss"))
+    norm_err = abs(k_norm - p_norm) / p_norm
+    ok = worst[0] <= 1e-3 and norm_err <= 1e-3
+    log(f"{tag} (d) one unclipped RCNN step, kernel vs plain: total_loss "
+        f"{k_m['total_loss']:.6f} vs {p_m['total_loss']:.6f}, worst loss "
+        f"{worst[1]} rel {worst[0]:.2e}, update norm {k_norm:.6e} vs "
+        f"{p_norm:.6e} rel {norm_err:.2e} (tol 1e-3) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{tag} the kernel RCNN step disagrees with the plain RCNN step")
+
+    # (e) the checkpoint round trip, into a freshly built model
+    ckpt, save_ms = timed(save_checkpoint, os.path.join(tmp.name, "rcnn.ckpt"),
+                          state)
+    pfile = save_params(os.path.join(tmp.name, "rcnn.params"), model)
+    model2 = build_model(cfg, tiny=tiny, device=dev)
+    state2 = refreeze_state(create_train_state(model2, cfg, seed=1), cfg, shared)
+    _, load_ms = timed(restore_checkpoint, ckpt, state2)
+    a, b = model.state_dict(), model2.state_dict()
+    loaded = load_params(pfile, model2)
+    diff = [k for k in a if not torch.equal(a[k], b[k])
+            or not torch.equal(a[k].cpu(), loaded[k])]
+    tdiff = [k for k in state.trace if not torch.equal(state.trace[k],
+                                                       state2.trace[k])]
+    same = (not diff and not tdiff and set(state.trace) == set(state2.trace)
+            and (state2.step, state2.count) == (state.step, state.count)
+            and torch.equal(state.generator.get_state(),
+                            state2.generator.get_state()))
+    log(f"{tag} (e) checkpoint {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB "
+        f"(save {save_ms:.0f} ms, restore {load_ms:.0f} ms): {len(a)} parameters "
+        f"and {len(state.trace)} traces bit-equal, step {state2.step}, count "
+        f"{state2.count}, generator: {'OK' if same else 'FAIL'}")
+    if not same:
+        fail(f"{tag} the restored state differs: params {diff[:5]}, traces "
+             f"{tdiff[:5]}")
+
+    # (f) predict_rcnn from the restored model on image 0's cached proposals.
+    # Three steps on three boxes leave every merged class score below
+    # TEST.SCORE_THRESH (1e-3): no detection at all on the card. At 0 the top
+    # 100 of the 150 x 80 merged scores are detections, and the merged
+    # scores themselves are held to the plain path's
+    pcfg = cfg.copy()
+    pcfg.TEST.SCORE_THRESH = 0.0
+    rois, valid = rois_of(0)
+    img, info = items[0][1], items[0][2]
+    pred = make_predict_fn_rcnn(model2, pcfg)
+    pred(img, info, rois, valid)                              # warm-up
+    pred_times, out = [], None
+    for _ in range(3):
+        out, ms = timed(pred, img, info, rois, valid)
+        pred_times.append(ms)
+    dets = out["dets"].cpu().numpy()
+    scores = out["final_score"].float().cpu().numpy()
+    trained = make_predict_fn_rcnn(model, pcfg)(img, info, rois, valid)
+    trained = trained["dets"].cpu().numpy()
+    counts = read_launches()
+    with plain_kernels():
+        before = read_launches()
+        plain = make_predict_fn_rcnn(model2, pcfg)(img, info, rois, valid)
+        plain_scores = plain["final_score"].float().cpu().numpy()
+        plain = plain["dets"].cpu().numpy()
+        stray = launches_since(before)
+    top_score = float(np.abs(plain_scores).max())
+    score_err = float(np.abs(scores - plain_scores).max()) / max(top_score, 1e-30)
+    errs = match_dets(plain, dets) + [f"trained model: {e}" for e in
+                                      match_dets(trained, dets)]
+    if score_err > 1e-3:
+        errs.append(f"merged scores: max difference {score_err:.2e} of the "
+                    f"largest, {top_score:.3e}")
+    n_dets = int((dets[:, 0] >= 0).sum())
+    pred_ms = statistics.median(pred_times)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} (f) predict_rcnn over {int(valid.sum())} cached ROIs: "
+        f"{n_dets} detections at score threshold 0, largest merged score "
+        f"{top_score:.3e}, kernel vs plain {score_err:.2e} of it (tol 1e-3); "
+        f"ms/image {', '.join(f'{x:.3f}' for x in pred_times)}"
+        f" (median {pred_ms:.3f}); restored vs plain and vs the trained model "
+        f"top-{TOP_K} (IoU>={IOU_MIN}, |ds|<={SCORE_ATOL}): "
+        f"{'OK' if not errs else f'{len(errs)} mismatches'}; bit-equal to the "
+        f"trained model's: {np.array_equal(dets, trained)}; on {card}")
+    if errs or stray:
+        for e in errs[:20]:
+            log(f"  {e}")
+        fail(f"{tag} predict_rcnn outside the bands, or the plain path "
+             f"launched kernels {stray}")
+    if (not np.isfinite(dets).all() or dets.shape != (int(cfg.TEST.max_per_image), 6)
+            or n_dets < int(cfg.TEST.max_per_image)):
+        fail(f"{tag} bad detections: shape {dets.shape}, {n_dets} real")
+    tmp.cleanup()
+    must = ["nms_keep_sorted", "geom_bias", "geom_bias_bwd",
+            "fused_bias_attention"] + ([] if tiny else ["stem_conv1_bn_relu"])
+    zero = [k for k in must if counts[k] <= 0]
+    if zero:
+        fail(f"{tag} kernels never launched: {zero}")
+    log(f"[e2e] workflow fpn_learn_nms: RPN step {rpn_ms[1]:.3f} ms, proposal "
+        f"dump {dump_ms / len(items):.3f} ms/image, RCNN step {rcnn_ms:.3f} "
+        f"ms, predict_rcnn {pred_ms:.3f} ms/image, peak memory {peak_gb:.3f} "
+        f"GiB; launches {counts}; on {card}")
+    del model, model2, state, state2
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk", "fpn"],
+    ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk", "fpn",
+                                        "workflow"],
                     default="all")
     args = ap.parse_args()
     try:
@@ -2101,8 +2529,7 @@ def main() -> None:
         "geom_bias": (csrc + "geom_bias.cu", pallas + "geom_bias.py:275",
                       check_geom_bias, rng),
         "nms_keep_sorted": (csrc + "nms_kernel.cu", pallas + "nms_kernel.py:118",
-                            lambda t, d, r: check_nms(t, d, r,
-                                                      nms_ran["C=1 Np=6144"]),
+                            lambda t, d, r: check_nms(t, d, r, nms_ran),
                             rng),
         "stem_conv1_bn_relu": (csrc + "stem.cu", pallas + "stem.py:67",
                                check_stem, rng),
@@ -2143,8 +2570,12 @@ def main() -> None:
             "geom_bias", "geom_bias_bwd", "fused_nms_relation_attention_skip",
             "fused_geometric_bias_skip", "fused_bias_attention",
             "fused_bias_attention_skip")}
+    if args.phase == "workflow":
+        checks = {k: checks[k] for k in (
+            "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
+            "fused_bias_attention")}
     nms_ran = (nms_kernels_a_call(torch, dev)
-               if args.phase in ("all", "kernels", "dcn") else {})
+               if args.phase in ("all", "kernels", "dcn", "workflow") else {})
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
     if args.phase in ("all", "kernels", "dcn"):
         check_nms_classic(torch, dev, np.random.RandomState(4),
@@ -2177,6 +2608,10 @@ def main() -> None:
         fpn_phase()
         log(f"[done] FPN phases only: launches {launches}; no device line")
         return
+    if args.phase == "workflow":
+        add(run_workflow(torch, dev, card))
+        log(f"[done] workflow phase only: launches {launches}; no device line")
+        return
     if args.phase == "all":
         flagship_launches, ms_image = run_flagship(torch, dev)
         add(flagship_launches)
@@ -2204,6 +2639,8 @@ def main() -> None:
         return
     torch.cuda.empty_cache()
     fpn_phase()
+    torch.cuda.empty_cache()
+    add(run_workflow(torch, dev, card))
     for name in SHAPES:
         split = {k.split("@", 1)[1]: v for k, v in launches.items()
                  if k.startswith(name + "@")}

@@ -7,7 +7,8 @@ among them).
 
 Detections come back as a fixed-size [max_det, 6] tensor (cls_id, score,
 x1, y1, x2, y2 in original-image coordinates) with -1 class padding.
-The sharded and rcnn variants come in later slices of the port.
+make_predict_fn_rcnn predicts from cached proposals (TEST.HAS_RPN false).
+The sharded variant comes in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -190,7 +191,8 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
                                     max_det)
         return {"dets": dets, "cls_prob": cls_prob, "pred_boxes": boxes_all}
 
-    def learned_tail(cls_score, bbox_deltas, rois, fc2, im_info):
+    def learned_tail(cls_score, bbox_deltas, rois, fc2, im_info,
+                     class_thresh=class_thresh):
         """learned-NMS head -> merged scores -> top max_det."""
         ln = model.learn_nms(cls_score, bbox_deltas, rois, fc2, im_info,
                              class_thresh, **tail_kw)
@@ -236,6 +238,7 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
         return out
 
     predict.tail = tail         # the stage after the head, for the profiler
+    predict.classic_tail, predict.learned_tail = classic_tail, learned_tail
     return predict
 
 
@@ -268,3 +271,48 @@ def build_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg):
             and isinstance(model, RelationRCNNFPN) and bool(cfg.TEST.LEARN_NMS)):
         return make_predict_fn_split(model, cfg)
     return make_predict_fn(model, cfg)
+
+
+def make_predict_fn_rcnn(model: RelationRCNN | RelationRCNNFPN, cfg):
+    """Inference from cached proposals (TEST.HAS_RPN false; port of
+    relation_tpu/core/predictor.py::make_predict_fn_rcnn): the trunk, then
+    the head over the given ROIs, with every ROI a key of its relation
+    modules (nongt_dim = the number of ROIs), then the tails of
+    ``make_predict_fn``.
+
+    Returns predict(image, im_info, rois [R, 4], rois_valid [R]) -> dict with
+    'rois', 'dets' [max_per_image, 6] and the tail's outputs, on the model's
+    device (inputs may live on the host). TOP_ROIS is the caller's cut;
+    padding rides on ``rois_valid``. Where the JAX function differs from
+    make_predict_fn, this follows it:
+      - the learned-NMS tail runs with no class threshold (0.0: every class
+        active, so its dense branch runs), whatever
+        TEST.LEARN_NMS_CLASS_SCORE_TH says;
+      - the learned-NMS tail ignores ``rois_valid``: padded ROIs reach the
+        head, and its relation modules take them as keys. Only the classic
+        tail masks them."""
+    device = next(model.parameters()).device
+    learn_nms = bool(cfg.TEST.LEARN_NMS)
+    pixel_means = tuple(float(m) for m in cfg.network.PIXEL_MEANS)
+    base = make_predict_fn(model, cfg)
+
+    @torch.inference_mode()
+    def predict(image, im_info, rois, rois_valid):
+        image = torch.as_tensor(image, device=device)
+        im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
+        rois = torch.as_tensor(rois, dtype=torch.float32, device=device)
+        rois_valid = torch.as_tensor(rois_valid, device=device).bool()
+        image = _image_from_u8(image, im_info, pixel_means)
+        feat = model.features_and_rpn(image)[0]
+        cls_score, bbox_deltas, fc2 = model.head(feat, rois, rois.shape[0])
+        out = {"rois": rois, "cls_score": cls_score, "bbox_pred": bbox_deltas,
+               "fc2": fc2}
+        if learn_nms:
+            out.update(base.learned_tail(cls_score, bbox_deltas, rois, fc2,
+                                         im_info, class_thresh=0.0))
+        else:
+            out.update(base.classic_tail(cls_score, bbox_deltas, rois,
+                                         rois_valid, im_info))
+        return out
+
+    return predict

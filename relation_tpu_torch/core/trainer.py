@@ -219,12 +219,18 @@ def make_optimizer(cfg, epoch_size: int, mask: dict) -> Optimizer:
 
 @dataclasses.dataclass
 class TrainState:
-    """What a train step carries besides the model's own parameters."""
+    """What a train step carries besides the model's own parameters.
+    ``count`` is the optimizer's own update count, the step of the schedule
+    (optax's ScaleByScheduleState.count in the JAX package): it stays put in
+    a ``no_grad`` step and restarts with the momentum in ``refreeze_state``,
+    while ``step`` counts every call. ``seed`` is the generator's seed."""
     step: int
     model: RelationRCNN
     trace: dict                      # momentum buffers of the trainable leaves
     generator: torch.Generator
     tx: Optimizer
+    count: int = 0
+    seed: int = 0
 
 
 def _set_requires_grad(model, mask) -> None:
@@ -246,17 +252,18 @@ def create_train_state(model: RelationRCNN, cfg, seed: int = 0,
     gen = torch.Generator(device=next(model.parameters()).device)
     gen.manual_seed(int(seed))
     return TrainState(step=0, model=model, trace=tx.init(model), generator=gen,
-                      tx=tx)
+                      tx=tx, seed=int(seed))
 
 
 def refreeze_state(state: TrainState, cfg, fixed_prefixes,
                    epoch_size: int = 1000) -> TrainState:
     """A fresh optimizer over the same parameters with a new freeze mask (the
-    per-stage re-init of the alternate workflow). Momentum restarts at zero."""
+    per-stage re-init of the alternate workflow). Momentum and the
+    schedule's count restart at zero, as a fresh optax chain's do."""
     mask = trainable_mask(state.model, fixed_prefixes)
     _set_requires_grad(state.model, mask)
     tx = make_optimizer(cfg, epoch_size, mask)
-    return dataclasses.replace(state, trace=tx.init(state.model), tx=tx)
+    return dataclasses.replace(state, trace=tx.init(state.model), tx=tx, count=0)
 
 
 def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
@@ -297,25 +304,12 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
         raise NotImplementedError(
             f"stop_after={stop_after!r}: the benchmarking cuts of the JAX "
             "train step are not ported")
+    device = step_device(model, cfg, device, "make_train_step")
     is_fpn = isinstance(model, RelationRCNNFPN)
-    if ("fpn" in cfg.symbol) != is_fpn:
-        raise ValueError(f"{cfg.symbol}: the model was built as "
-                         f"{'an FPN' if is_fpn else 'a C4'} detector")
-    if ("dcn" in cfg.symbol) != bool(getattr(model, "dcn", False)):
-        raise ValueError(f"{cfg.symbol}: the model was built "
-                         f"{'with' if model.dcn else 'without'} the DCN parts")
-    device = resolve_device(device)
-    model_dev = next(model.parameters()).device
-    if model_dev.type != device.type:
-        raise ValueError(f"make_train_step(device={str(device)!r}) for a model "
-                         f"on {model_dev}")
-    device = model_dev
     stride = int(cfg.network.RPN_FEAT_STRIDE)
-    scales = tuple(cfg.network.ANCHOR_SCALES)
-    ratios = tuple(cfg.network.ANCHOR_RATIOS)
-    base_anchors = generate_anchors(stride, ratios, scales)
-    base_anchors_t = torch.as_tensor(base_anchors, dtype=torch.float32,
-                                     device=device)
+    ratios, scales = tuple(cfg.network.ANCHOR_RATIOS), tuple(cfg.network.ANCHOR_SCALES)
+    base_anchors_t = torch.as_tensor(generate_anchors(stride, ratios, scales),
+                                     dtype=torch.float32, device=device)
     # an FPN level's base anchors: base size = the level's stride
     level_base = {s: torch.as_tensor(generate_anchors(s, ratios, scales),
                                      dtype=torch.float32, device=device)
@@ -323,41 +317,15 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     nongt_dim = int(cfg.TRAIN.RPN_POST_NMS_TOP_N)
     batch_rois = int(cfg.TRAIN.BATCH_ROIS)
     num_reg = 2 if cfg.CLASS_AGNOSTIC else int(cfg.dataset.NUM_CLASSES)
-    threshes = tuple(np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float,
-                                   sep=","))
-    ohem = bool(cfg.TRAIN.ENABLE_OHEM)
-    learn_nms = bool(cfg.TRAIN.LEARN_NMS)
-    if learn_nms and batch_rois >= 0:
+    if bool(cfg.TRAIN.LEARN_NMS) and batch_rois >= 0:
         raise ValueError("LEARN_NMS requires take-all ROI mode (BATCH_ROIS=-1), "
                          "as in the reference configs")
-    bbox_norm_denom = float(cfg.TRAIN.BATCH_ROIS_OHEM if ohem
-                            else (300 if batch_rois < 0 else batch_rois))
-    pixel_means = tuple(float(m) for m in cfg.network.PIXEL_MEANS)
     if fixed_prefixes is None:
         fixed_prefixes = tuple(cfg.network.FIXED_PARAMS)
     step_mask = trainable_mask(model, fixed_prefixes)
-    anchor_grids = {}              # the shifted anchors, by feature shape(s)
-
-    def rpn_rows(rpn):
-        """(anchors [K, 4], rpn_cls [K, 2], rpn_bbox [K, 4]) of one image in
-        (h, w, a) order; an FPN's levels concatenated in FPN_STRIDES order."""
-        if is_fpn:
-            shapes = tuple((s, tuple(rpn[s][0].shape[:2])) for s in FPN_STRIDES)
-            if shapes not in anchor_grids:
-                grids = fpn_anchors(dict(shapes), scales, ratios, device=device)
-                anchor_grids[shapes] = torch.cat([grids[s] for s in FPN_STRIDES])
-            # raw [h, w, 2A] / [h, w, 4A]: reshape(-1, 2 or 4) gives the
-            # (h, w, a)-major rows of the C4 head's [h, w, A, 2 or 4]
-            return (anchor_grids[shapes],
-                    torch.cat([rpn[s][0].reshape(-1, 2) for s in FPN_STRIDES]),
-                    torch.cat([rpn[s][1].reshape(-1, 4) for s in FPN_STRIDES]))
-        rpn_cls, rpn_bbox = rpn
-        fh, fw = rpn_cls.shape[0], rpn_cls.shape[1]
-        if (fh, fw) not in anchor_grids:
-            anchor_grids[fh, fw] = shift_anchors(base_anchors, fh, fw, stride,
-                                                 device=device)
-        return (anchor_grids[fh, fw], rpn_cls.reshape(-1, 2),
-                rpn_bbox.reshape(-1, 4))
+    rpn_rows = rpn_rows_fn(model, cfg, device)
+    rpn_loss = rpn_loss_fn(cfg)
+    head_losses = head_losses_fn(model, cfg)
 
     def proposals(rpn, im_info):
         """The image's proposals [post_N, 4] (called without gradient)."""
@@ -370,25 +338,16 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                                   rpn_bbox, base_anchors_t, im_info, stride,
                                   *top)[0]
 
-    def per_image(feat, rpn, im_info, gt_boxes, gt_valid, generator, prio):
+    def per_image(feat, rpn, ins, generator, prio):
         """Everything after the batched conv trunk, for one image. C4: feat
         [h, w, 256], rpn (rpn_cls [h, w, A, 2], rpn_bbox [h, w, A, 4]); FPN:
         feat {stride: [h, w, 256]}, rpn {stride: (rpn_cls [h, w, 2A],
         rpn_bbox [h, w, 4A])}."""
+        im_info, gt_boxes, gt_valid = ins["im_info"], ins["gt_boxes"], ins["gt_valid"]
         anchors, rpn_cls_flat, rpn_bbox_flat = rpn_rows(rpn)
-        label, btgt, bwt = anchor_targets(
-            anchors, gt_boxes, gt_valid, im_info, generator,
-            rpn_batch_size=int(cfg.TRAIN.RPN_BATCH_SIZE),
-            fg_fraction=float(cfg.TRAIN.RPN_FG_FRACTION),
-            positive_overlap=float(cfg.TRAIN.RPN_POSITIVE_OVERLAP),
-            negative_overlap=float(cfg.TRAIN.RPN_NEGATIVE_OVERLAP),
-            clobber_positives=bool(cfg.TRAIN.RPN_CLOBBER_POSITIVES),
-            bbox_weights=tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
-            priorities=None if prio is None else prio["anchor"])
-        rpn_cls_loss, rpn_bbox_loss = rpn_losses(
-            rpn_cls_flat, rpn_bbox_flat, label, btgt, bwt,
-            int(cfg.TRAIN.RPN_BATCH_SIZE), sigma=float(cfg.TRAIN.rpn_loss_scale))
-
+        rpn_cls_loss, rpn_bbox_loss, rpn_acc = rpn_loss(
+            anchors, rpn_cls_flat, rpn_bbox_flat, im_info, gt_boxes, gt_valid,
+            generator, None if prio is None else prio["anchor"])
         with torch.no_grad():
             rois = proposals(rpn, im_info)
             tgt = sample_rois(
@@ -404,7 +363,118 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                 bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
                 bbox_weights=tuple(np.asarray(cfg.TRAIN.BBOX_WEIGHTS).tolist()),
                 priorities=None if prio is None else prio.get("sample"))
+        parts, metrics = head_losses(feat, tgt, nongt_dim, im_info, gt_boxes,
+                                     gt_valid)
+        total = rpn_cls_loss + rpn_bbox_loss
+        for part in parts:
+            total = total + part
+        metrics.update({"rpn_cls_loss": rpn_cls_loss,
+                        "rpn_bbox_loss": rpn_bbox_loss, "rpn_acc": rpn_acc,
+                        "total_loss": total})
+        return total, metrics
 
+    def train_step(state: TrainState, batch, priorities=None):
+        return run_step(model, state, batch, priorities, per_image,
+                        step_mask=step_mask, no_grad=no_grad, device=device,
+                        pixel_means=cfg.network.PIXEL_MEANS)
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# the parts of a step that the end-to-end step and the alternate workflow's
+# RPN and RCNN steps (core/rpn_workflow.py) share
+# --------------------------------------------------------------------------
+
+def step_device(model, cfg, device, what: str) -> torch.device:
+    """The model's device, after checking that the symbol matches the model
+    and that ``device`` is where the model lives (CUDA where there is none
+    raises)."""
+    is_fpn = isinstance(model, RelationRCNNFPN)
+    if ("fpn" in cfg.symbol) != is_fpn:
+        raise ValueError(f"{cfg.symbol}: the model was built as "
+                         f"{'an FPN' if is_fpn else 'a C4'} detector")
+    if ("dcn" in cfg.symbol) != bool(getattr(model, "dcn", False)):
+        raise ValueError(f"{cfg.symbol}: the model was built "
+                         f"{'with' if model.dcn else 'without'} the DCN parts")
+    device = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev.type != device.type:
+        raise ValueError(f"{what}(device={str(device)!r}) for a model "
+                         f"on {model_dev}")
+    return model_dev
+
+
+def rpn_rows_fn(model, cfg, device) -> Callable:
+    """rows(rpn) -> (anchors [K, 4], rpn_cls [K, 2], rpn_bbox [K, 4]) of one
+    image in (h, w, a) order; an FPN's five levels concatenated in
+    FPN_STRIDES order. The shifted anchors are kept by feature shape."""
+    is_fpn = isinstance(model, RelationRCNNFPN)
+    stride = int(cfg.network.RPN_FEAT_STRIDE)
+    scales = tuple(cfg.network.ANCHOR_SCALES)
+    ratios = tuple(cfg.network.ANCHOR_RATIOS)
+    base_anchors = generate_anchors(stride, ratios, scales)
+    grids = {}
+
+    def rows(rpn):
+        if is_fpn:
+            shapes = tuple((s, tuple(rpn[s][0].shape[:2])) for s in FPN_STRIDES)
+            if shapes not in grids:
+                level = fpn_anchors(dict(shapes), scales, ratios, device=device)
+                grids[shapes] = torch.cat([level[s] for s in FPN_STRIDES])
+            # raw [h, w, 2A] / [h, w, 4A]: reshape(-1, 2 or 4) gives the
+            # (h, w, a)-major rows of the C4 head's [h, w, A, 2 or 4]
+            return (grids[shapes],
+                    torch.cat([rpn[s][0].reshape(-1, 2) for s in FPN_STRIDES]),
+                    torch.cat([rpn[s][1].reshape(-1, 4) for s in FPN_STRIDES]))
+        rpn_cls, rpn_bbox = rpn
+        fh, fw = rpn_cls.shape[0], rpn_cls.shape[1]
+        if (fh, fw) not in grids:
+            grids[fh, fw] = shift_anchors(base_anchors, fh, fw, stride,
+                                          device=device)
+        return grids[fh, fw], rpn_cls.reshape(-1, 2), rpn_bbox.reshape(-1, 4)
+    return rows
+
+
+def rpn_loss_fn(cfg) -> Callable:
+    """loss(anchors, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
+    generator, priorities) -> (cls loss, bbox loss, accuracy): anchor
+    targets (``priorities`` the (fg, bg) uniform vectors, or None to draw
+    from ``generator``) and the RPN losses of one image."""
+    def loss(anchors, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
+             generator, priorities):
+        label, btgt, bwt = anchor_targets(
+            anchors, gt_boxes, gt_valid, im_info, generator,
+            rpn_batch_size=int(cfg.TRAIN.RPN_BATCH_SIZE),
+            fg_fraction=float(cfg.TRAIN.RPN_FG_FRACTION),
+            positive_overlap=float(cfg.TRAIN.RPN_POSITIVE_OVERLAP),
+            negative_overlap=float(cfg.TRAIN.RPN_NEGATIVE_OVERLAP),
+            clobber_positives=bool(cfg.TRAIN.RPN_CLOBBER_POSITIVES),
+            bbox_weights=tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
+            priorities=priorities)
+        cls_loss, bbox_loss = rpn_losses(
+            rpn_cls, rpn_bbox, label, btgt, bwt, int(cfg.TRAIN.RPN_BATCH_SIZE),
+            sigma=float(cfg.TRAIN.rpn_loss_scale))
+        return cls_loss, bbox_loss, accuracy_ignore(rpn_cls, label)
+    return loss
+
+
+def head_losses_fn(model, cfg) -> Callable:
+    """losses(feat, tgt, nongt_dim, im_info, gt_boxes, gt_valid) -> (parts,
+    metrics): everything after ``sample_rois`` for one image, the head (its
+    relation modules over the first ``nongt_dim`` ROIs as keys), OHEM, the
+    RCNN losses and, with TRAIN.LEARN_NMS, the learned-NMS branch at class
+    threshold 0 on the first ``nongt_dim`` ROIs. ``parts`` are the losses to
+    add to the total, in the order the JAX package adds them."""
+    threshes = tuple(np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float,
+                                   sep=","))
+    ohem = bool(cfg.TRAIN.ENABLE_OHEM)
+    learn_nms = bool(cfg.TRAIN.LEARN_NMS)
+    batch_rois = int(cfg.TRAIN.BATCH_ROIS)
+    bbox_norm_denom = float(cfg.TRAIN.BATCH_ROIS_OHEM if ohem
+                            else (300 if batch_rois < 0 else batch_rois))
+
+    def losses(feat, tgt, nongt_dim, im_info, gt_boxes, gt_valid):
         cls_score, bbox_pred, fc2 = model.head(feat, tgt["rois"], nongt_dim)
         rlabel, rweight = tgt["label"], tgt["bbox_weight"]
         if ohem:
@@ -414,13 +484,10 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
         rcnn_cls_loss, rcnn_bbox_loss = rcnn_losses(
             cls_score, bbox_pred, rlabel, tgt["bbox_target"], rweight,
             bbox_norm_denom)
-        total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
-        metrics = {
-            "rpn_cls_loss": rpn_cls_loss, "rpn_bbox_loss": rpn_bbox_loss,
-            "rcnn_cls_loss": rcnn_cls_loss, "rcnn_bbox_loss": rcnn_bbox_loss,
-            "rpn_acc": accuracy_ignore(rpn_cls_flat, label),
-            "rcnn_acc": accuracy_ignore(cls_score, rlabel),
-        }
+        parts = [rcnn_cls_loss, rcnn_bbox_loss]
+        metrics = {"rcnn_cls_loss": rcnn_cls_loss,
+                   "rcnn_bbox_loss": rcnn_bbox_loss,
+                   "rcnn_acc": accuracy_ignore(cls_score, rlabel)}
         if learn_nms:
             ln = model.learn_nms(cls_score[:nongt_dim], bbox_pred[:nongt_dim],
                                  tgt["rois"][:nongt_dim], fc2[:nongt_dim],
@@ -431,59 +498,66 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                 ln["nms_multi_score"], nt, float(cfg.TRAIN.nms_loss_scale),
                 float(cfg.TRAIN.nms_pos_scale))
             acc_pos, acc_neg = nms_accuracy(ln["nms_multi_score"], nt)
-            total = total + nms_total
+            parts.append(nms_total)
             metrics.update({"nms_pos_loss": pos_l, "nms_neg_loss": neg_l,
                             "nms_acc_pos": acc_pos, "nms_acc_neg": acc_neg})
-        metrics["total_loss"] = total
-        return total, metrics
+        return parts, metrics
+    return losses
 
-    def train_step(state: TrainState, batch, priorities=None):
-        from relation_tpu_torch.core.predictor import _image_from_u8
-        if state.model is not model:
-            raise ValueError("train_step: the state belongs to another model")
-        image = torch.as_tensor(batch["image"], device=device)
-        im_info = torch.as_tensor(batch["im_info"], dtype=torch.float32,
-                                  device=device)
-        gt_boxes = torch.as_tensor(batch["gt_boxes"], dtype=torch.float32,
-                                   device=device)
-        gt_valid = torch.as_tensor(batch["gt_valid"], device=device).bool()
-        B = image.shape[0]
-        if priorities is not None and len(priorities) != B:
-            raise ValueError(f"priorities for {len(priorities)} images, "
-                             f"batch of {B}")
-        _set_requires_grad(model, step_mask)
-        with torch.set_grad_enabled(not no_grad):
-            if image.dtype == torch.uint8:
-                image = torch.stack([_image_from_u8(image[b], im_info[b],
-                                                    pixel_means)
-                                     for b in range(B)])
-            if is_fpn:
-                pyramid, rpn_out = model.features_and_rpn(image)
-                feats = [{s: f[b] for s, f in pyramid.items()} for b in range(B)]
-                rpns = [{s: (c[b], r[b]) for s, (c, r) in rpn_out.items()}
-                        for b in range(B)]
-            else:
-                feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
-                feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
-            totals, per = [], []
-            for b in range(B):
-                tot, m = per_image(
-                    feats[b], rpns[b], im_info[b], gt_boxes[b], gt_valid[b],
-                    state.generator,
-                    None if priorities is None else priorities[b])
-                totals.append(tot)
-                per.append(m)
-            loss = torch.stack(totals).mean()
-            metrics = {k: torch.stack([m[k] for m in per]).mean().detach()
-                       for k in per[0]}
-            if not no_grad:
-                for p in model.parameters():
-                    p.grad = None
-                loss.backward()
-                state.tx.update(model, state.trace, state.step)
-                for p in model.parameters():
-                    p.grad = None
-        state.step += 1
-        return state, metrics
 
-    return train_step
+def run_step(model, state: TrainState, batch, priorities, per_image, *,
+             step_mask: dict, no_grad: bool, device, pixel_means):
+    """One step over a batch: the batch to ``device`` (uint8 images
+    mean-subtracted there), the conv trunk and RPN batched, ``per_image(feat,
+    rpn, inputs, generator, prio) -> (total, metrics)`` for each image
+    (``inputs``: its slice of every batch entry but the image), the mean
+    loss's gradient with only the ``step_mask`` leaves requiring one, and
+    the optimizer's update in place. Returns (state, batch-mean metrics)."""
+    from relation_tpu_torch.core.predictor import _image_from_u8
+    if state.model is not model:
+        raise ValueError("train_step: the state belongs to another model")
+    image = torch.as_tensor(batch["image"], device=device)
+    ins = {}
+    for k, v in batch.items():
+        if k != "image":
+            v = torch.as_tensor(v, device=device)
+            ins[k] = v.bool() if k.endswith("valid") else v.float()
+    B = image.shape[0]
+    if priorities is not None and len(priorities) != B:
+        raise ValueError(f"priorities for {len(priorities)} images, "
+                         f"batch of {B}")
+    means = tuple(float(m) for m in pixel_means)
+    _set_requires_grad(model, step_mask)
+    with torch.set_grad_enabled(not no_grad):
+        if image.dtype == torch.uint8:
+            image = torch.stack([_image_from_u8(image[b], ins["im_info"][b],
+                                                means) for b in range(B)])
+        if isinstance(model, RelationRCNNFPN):
+            pyramid, rpn_out = model.features_and_rpn(image)
+            feats = [{s: f[b] for s, f in pyramid.items()} for b in range(B)]
+            rpns = [{s: (c[b], r[b]) for s, (c, r) in rpn_out.items()}
+                    for b in range(B)]
+        else:
+            feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
+            feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
+        totals, per = [], []
+        for b in range(B):
+            tot, m = per_image(feats[b], rpns[b],
+                               {k: v[b] for k, v in ins.items()},
+                               state.generator,
+                               None if priorities is None else priorities[b])
+            totals.append(tot)
+            per.append(m)
+        loss = torch.stack(totals).mean()
+        metrics = {k: torch.stack([m[k] for m in per]).mean().detach()
+                   for k in per[0]}
+        if not no_grad:
+            for p in model.parameters():
+                p.grad = None
+            loss.backward()
+            state.tx.update(model, state.trace, state.count)
+            for p in model.parameters():
+                p.grad = None
+            state.count += 1
+    state.step += 1
+    return state, metrics

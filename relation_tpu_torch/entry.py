@@ -24,11 +24,13 @@ The FPN families are the same three heads and tails on the FPN detector
 over the five levels with one scale and three ratios, 3 x 51,840 anchors at
 608x1024, ROIs pooled at their dispatch level), with the settings of
 experiments/cfgs/*_rcnn_fpn*_8epoch.yaml: fpn, fpn_relation and
-fpn_learn_nms (FIRST_N 150, LEARN_NMS_CLASS_SCORE_TH 0.05). The YAMLs test
-from cached proposals (TEST.HAS_RPN False); here, as in the JAX package's
-make_predict_fn, the RPN runs on the device. entry() serves them through
-core/predictor.py::build_predict_fn, so fpn_learn_nms takes the
-TPU.FPN_SPLIT_PREDICT form by default.
+fpn_learn_nms (FIRST_N 150, LEARN_NMS_CLASS_SCORE_TH 0.05). The YAMLs train
+and test from cached proposals (TRAIN.END2END and TEST.HAS_RPN False), the
+workflow of core/rpn_workflow.py, whose keys family_cfg sets as they do
+(FIXED_PARAMS_SHARED, TOP_ROIS 1000, TEST.PROPOSAL_* 20000 -> 2000); entry()
+serves them as the JAX package's make_predict_fn does, with the RPN on the
+device, through core/predictor.py::build_predict_fn, so fpn_learn_nms takes
+the TPU.FPN_SPLIT_PREDICT form by default.
 """
 
 from __future__ import annotations
@@ -96,6 +98,17 @@ def family_cfg(family: str = "flagship", tiny_shapes: bool = False):
         if learn_nms:
             first_n = 150
             cfg.TEST.LEARN_NMS_CLASS_SCORE_TH = 0.05
+        # the alternate workflow's keys (core/rpn_workflow.py): the trunk
+        # shared with the RPN, one image a batch, the proposal dump's top
+        # 2000 of 20000 at min size 0, 1000 cached ROIs an image
+        cfg.network.FIXED_PARAMS_SHARED = [
+            "conv1", "bn_conv1", "res2", "bn2", "res3", "bn3", "res4", "bn4",
+            "gamma", "beta"]
+        cfg.TRAIN.BATCH_IMAGES = 1
+        cfg.TEST.PROPOSAL_PRE_NMS_TOP_N = 128 if tiny_shapes else 20000
+        cfg.TEST.PROPOSAL_POST_NMS_TOP_N = 64 if tiny_shapes else 2000
+        cfg.TEST.PROPOSAL_MIN_SIZE = 0
+        cfg.TRAIN.TOP_ROIS = cfg.TEST.TOP_ROIS = 40 if tiny_shapes else 1000
     pre, post, first_n = (128, 48, 16) if tiny_shapes else (6000, 300, first_n)
     for sec in (cfg.TRAIN, cfg.TEST):
         sec.RPN_PRE_NMS_TOP_N = pre

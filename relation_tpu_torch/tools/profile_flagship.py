@@ -2,7 +2,7 @@
 step) goes, on one CUDA card.
 
     python3 -m relation_tpu_torch.tools.profile_flagship [--family flagship]
-        [--requests 3] [--trace out.json] [--train]
+        [--requests 3] [--trace out.json] [--train | --workflow]
 
 Builds one family of relation_tpu_torch/entry.py::FAMILIES (the flagship,
 dcn, dcn_relation, dcn_learn_nms, fpn, fpn_relation or fpn_learn_nms;
@@ -25,6 +25,10 @@ split form for fpn_learn_nms), warms up, then:
    bf16) forward and backward at B=1 and B=2, and the deformable PSROI pool
    (300 ROIs, 7x7, 4 samples a part, 256 channels) without and with trans,
    forward and backward.
+
+With --workflow it profiles fpn_learn_nms's alternate workflow instead
+(chip_smoke.py's phase 12): --requests RCNN steps on 1000 cached ROIs and
+--requests predict_rcnn calls, each with the same report.
 
 With --train it profiles --requests train steps instead (B=2, the batch and
 the clip of chip_smoke.py's training phase, after two warm-up steps; any
@@ -162,12 +166,65 @@ def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
         for r in rows if "index" in r.key.lower()))
 
 
+def profile_workflow(torch, dev, steps: int, trace: str) -> None:
+    """fpn_learn_nms through the alternate workflow, set up by chip_smoke.py's
+    phase 12 (``workflow_setup``: calibrated, the three seeded images; the
+    proposal dump's 1000 best ROIs an image, ``cached_rois``; train_shared,
+    the clip): ``steps`` RCNN steps and ``steps`` predict_rcnn calls on
+    image 0, each kind after two warm-up calls, each profiled on its own."""
+    import tempfile
+    from chip_smoke import cached_rois, workflow_batch, workflow_setup
+    from relation_tpu_torch.core.predictor import make_predict_fn_rcnn
+    from relation_tpu_torch.core.rpn_workflow import (generate_rpn_proposals,
+                                                      load_proposal_roidb,
+                                                      make_train_step_rcnn)
+    from relation_tpu_torch.core.trainer import create_train_state, refreeze_state
+    from torch.profiler import ProfilerActivity, profile
+    cfg, data, items, roidb, model = workflow_setup(torch, dev)
+    R = int(cfg.TRAIN.TOP_ROIS)
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = os.path.join(tmp, "rpn.pkl")
+        generate_rpn_proposals(model, cfg, roidb, pkl, loader=items, device=dev)
+        rois, valid = cached_rois(load_proposal_roidb(roidb, pkl, R), data, 0, R)
+    batch = workflow_batch(data, 0, rois=rois, rois_valid=valid)
+    state = refreeze_state(create_train_state(model, cfg, seed=0), cfg,
+                           cfg.network.FIXED_PARAMS_SHARED)
+    step = make_train_step_rcnn(model, cfg, max_rois=R,
+                                max_gt=data["gt_boxes"].shape[1],
+                                train_shared=True, device=dev)
+    predict = make_predict_fn_rcnn(model, cfg)
+    image, info = items[0][1], items[0][2]
+    for unit, call in (("RCNN step", lambda: step(state, batch)),
+                       ("predict_rcnn call",
+                        lambda: predict(image, info, rois, valid))):
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if trace:
+            prof.export_chrome_trace(f"{trace}.{unit.split()[0]}.json")
+        print(f"fpn_learn_nms alternate workflow, {unit}, {int(valid.sum())} "
+              f"cached ROIs")
+        report(torch, prof, wall_us, steps, unit.split()[-1])
+        rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
+        print(f"top host time per {unit.split()[-1]} (us): " + "; ".join(
+            f"{r.key[:60]} {r.self_cpu_time_total / steps:.1f} "
+            f"(x{r.count // steps})" for r in rows[:12]))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--family", default="flagship")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--trace", default="")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--workflow", action="store_true")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -191,6 +248,9 @@ def main():
     dev = torch.device("cuda", 0)
     if args.train:
         profile_training(torch, dev, args.family, args.requests, args.trace)
+        return
+    if args.workflow:
+        profile_workflow(torch, dev, args.requests, args.trace)
         return
     cfg = family_cfg(args.family)
     model = init_params(build_model(cfg, device=dev), seed=0)

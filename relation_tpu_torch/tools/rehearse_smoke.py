@@ -1,6 +1,6 @@
 """Rehearse chip_smoke.py's end-to-end phases on the CPU, at the tiny size.
 
-    python3 -m relation_tpu_torch.tools.rehearse_smoke
+    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow]
 
 A CUDA kernel cannot run without a card, so this is no check of the kernels:
 it finds wrong paths, arguments, shapes and control flow in chip_smoke.py
@@ -14,8 +14,9 @@ trunk has no res5, so the DCN rehearsal covers the deformable PSROI head, the
 classic NMS tail and the offset seeding, not the deformable conv), then
 ``run_fused_flagship``, ``run_fused_trunk`` and ``run_fpn`` (the full-depth
 trunk and FPN models, as entry() builds them, on a 64x128 image), then the
-FPN ``run_training`` of the three families with ``tiny=True``. It prints
-what the script prints; its times are CPU times and mean nothing.
+FPN ``run_training`` of the three families with ``tiny=True``, then
+``run_workflow`` (phase 12; ``--phase workflow`` rehearses it alone). It
+prints what the script prints; its times are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -82,8 +83,12 @@ def install_stubs() -> None:
     rel.fused_bias_attention_skip = counted(
         bias_attention, "skip_launches", bias_attention.bias_attention_reference)
     bb.stem_conv1_bn_relu = stem._Stem.apply
-    nms.nms_keep_sorted = counted(nms_kernel, "launches",
-                                  nms_kernel.nms_keep_sorted_reference)
+    def nms_keep(bT, *a, **k):
+        from relation_tpu_torch.ops.kernels import _build
+        _build.tally(nms_kernel.launch_shapes,
+                     f"C={bT.shape[0]} Np={bT.shape[2]}")
+        return nms_kernel.nms_keep_sorted_reference(bT, *a, **k)
+    nms.nms_keep_sorted = counted(nms_kernel, "launches", nms_keep)
     deform.dconv_col2im = counted(dconv_col2im, "launches",
                                   dconv_col2im.dconv_col2im_reference)
     bb.fused_bottleneck_stack = res4._Stack.apply
@@ -92,11 +97,19 @@ def install_stubs() -> None:
 
 
 def main() -> None:
+    import argparse
     import chip_smoke
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=["all", "workflow"], default="all")
+    args = ap.parse_args()
     install_stubs()
     cpu = torch.device("cpu")
-    chip_smoke.run_flagship(torch, cpu, tiny=True)
     card = "the CPU (rehearsal)"
+    if args.phase == "workflow":
+        chip_smoke.run_workflow(torch, cpu, card=card, tiny=True)
+        print("rehearsal done: control flow only, no kernel ran")
+        return
+    chip_smoke.run_flagship(torch, cpu, tiny=True)
     chip_smoke.run_training(torch, cpu, card=card, tiny=True)
     chip_smoke.run_dcn_inference(torch, cpu, card=card, tiny=True)
     chip_smoke.run_training(torch, cpu, card=card, tiny=True,
@@ -108,6 +121,7 @@ def main() -> None:
     for family in ("fpn", "fpn_relation", "fpn_learn_nms"):
         chip_smoke.run_training(torch, cpu, card=card, tiny=True, family=family,
                                 dense_steps=4, fused_steps=0)
+    chip_smoke.run_workflow(torch, cpu, card=card, tiny=True)
     print("rehearsal done: control flow only, no kernel ran")
 
 

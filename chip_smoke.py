@@ -7,20 +7,21 @@
     python3 chip_smoke.py --phase trunk    # build, trunk kernel checks, phases 8-9
     python3 chip_smoke.py --phase fpn      # build, FPN kernel checks, phases 10-11
     python3 chip_smoke.py --phase workflow # build, rows 1, 2, 4, 5, 7, phase 12
+    python3 chip_smoke.py --phase eval     # build, rows 1, 2, 4, 5, 7, 9, phase 13
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
 2. Holds each of the twelve kernels against its plain PyTorch version on
    the card, at the shapes the driven models give it (the geometric bias at
-   its six launch shapes, its backward at four, among them the alternate
-   workflow's head over 1016 rows against 300 keys and predict_rcnn's over
-   1000 x 1000; the NMS at the end-to-end proposal shape, at the proposal
+   its seven launch shapes, its backward at five, among them the alternate
+   workflow's head over 1016 rows against 300 keys, predict_rcnn's over
+   1000 x 1000 and the train driver's over 400 rows (TPU.MAX_GT 100)
+   against 300; the NMS at the end-to-end proposal shape, at the proposal
    dump's 20000 boxes with 2000 kept, and at the classic tail's C=80,
-   Np=512, one kernel on the
-   card a call (counted in one torch.profiler trace taken before the
-   checks) that allocates its keep mask and nothing else; the stem, bit
-   for bit as well; the fused attention at N=100 over every class and with
-   class skipping at N=100 and at the FPN tail's N=150, two runs and the
+   Np=512, one kernel on the card a call (counted in one torch.profiler
+   trace taken before the checks) that allocates its keep mask and nothing
+   else; the stem, bit for bit as well, also at the portrait bucket; the
+   fused attention at N=100 over every class and with class skipping at N=100 and at the FPN tail's N=150, two runs and the
    two entries bit-equal, timed beside the two-stage route (geometric
    bias, then bias attention) at the same inputs; the skip geometric bias
    and the bias attention with and without class skipping at the FPN
@@ -108,7 +109,21 @@
    three steps leave no class score above 1e-3), its merged scores within
    1e-3 of the plain path's largest. Prints ms/step of both steps, the
    dump's and predict_rcnn's ms/image and peak memory.
-13. Prints the launches of rows 1, 2, 4, 7 and 9 by shape, one JSON line
+13. Runs the flagship end to end from a dataset on disk (run_eval): a
+   seeded mini COCO-layout dataset (eight test images, six 480x640 and two
+   640x480, in the (608, 1024) and (800, 1024) buckets; PNG files read
+   through PIL, or, without PIL, the same arrays handed to the loaders),
+   experiments/train.py for four steps through the TrainLoader (flipped
+   entries, uint8 s2d batches), experiments/test.py on the newest params
+   file it wrote, bit-equal to the trained model's own predictions on the
+   TestLoader's items, pred_eval of the trained model bit-equal to them
+   too, the kernel path in the bands of phase 4 of the plain path, the
+   ground truth as detections at AP 1.0 and the NumPy matching route equal
+   to the native one, then fpn_learn_nms's proposal dump over the test
+   roidb (loader=None) and pred_eval_rcnn through the ProposalTestLoader.
+   Prints ms/step, ms/image with its data/net/fetch/post split, the
+   summarize time and the routes taken.
+14. Prints the launches of rows 1, 2, 4, 7 and 9 by shape, one JSON line
    describing every kernel (launches summed over the driven paths), then
    the device line.
 
@@ -238,6 +253,11 @@ def check_geom_bias(torch, dev, rng):
         "predict_rcnn C=1 N=M=1000": extract_position_matrix_t(
             torch.tensor(random_boxes(rng3, 1000), device=dev), 1000)[None],
     })
+    # the train driver's (phase 13): the flagship YAML's TPU.MAX_GT 100
+    # ground-truth rows padded onto 300 proposals, against 300 keys
+    shapes["driver C=1 N=400 M=300"] = extract_position_matrix_t(
+        torch.tensor(random_boxes(np.random.RandomState(15), 400), device=dev),
+        300)[None]
     json_shape = "lnms C=80 N=M=100"
     result = None
     for label, pos in shapes.items():
@@ -296,6 +316,11 @@ def check_geom_bias_bwd(torch, dev, rng):
         # 16 ground-truth rows against 300 keys, twice per image
         "rcnn C=1 N=1016 M=300": extract_position_matrix_t(
             torch.tensor(random_boxes(np.random.RandomState(14), 1016),
+                         device=dev), 300)[None],
+        # the train driver's (phase 13): 300 proposals + TPU.MAX_GT 100
+        # ground-truth rows against 300 keys
+        "driver C=1 N=400 M=300": extract_position_matrix_t(
+            torch.tensor(random_boxes(np.random.RandomState(16), 400),
                          device=dev), 300)[None],
     }
     result = None
@@ -546,6 +571,31 @@ def check_stem(torch, dev, rng):
         f"library_ms {library_ms:.4f} bound_us {bms * 1e3:.2f} ({bby})")
     if not ok:
         fail("stem_conv1_bn_relu disagrees with its plain version")
+    # the portrait bucket (800x1024) of the data path (phase 13), on the same
+    # weights, its image from a stream of its own
+    tall = torch.tensor(np.random.RandomState(17).randn(1, 12, 400, Wo) * 40,
+                        dtype=torch.float32, device=dev)
+    got = K._launch(tall, wf, scale, bias).float()
+    want = K.stem_reference(tall, w4, scale, bias).float()
+    torch.cuda.synchronize()
+    tall_same = torch.equal(got, want)
+    tall_ms = time_ms(torch, lambda: K._launch(tall, wf, scale, bias))
+    tall_plain_ms = time_ms(torch, lambda: K.stem_reference(tall, w4, scale,
+                                                            bias))
+    tall_img = tall[0].reshape(2, 2, 3, 400, Wo).permute(2, 3, 0, 4, 1).reshape(
+        1, 3, 800, 2 * Wo).to(torch.bfloat16)
+    tall_library_ms = time_ms(torch, lambda: F.relu_(F.conv2d(
+        tall_img, wfold, bf, stride=2, padding=3)))
+    tall_bms, tall_bby = bound(12 * 400 * Wo * 4 + 64 * 400 * Wo * 2
+                               + 192 * 64 * 2 + 512, 2 * 64 * 192 * 400 * Wo,
+                               BF16_PEAK)
+    log(f"[kernel] stem_conv1_bn_relu [12,400,{Wo}]: max abs err "
+        f"{float((got - want).abs().max()):.3e}, bit-equal: {tall_same}; "
+        f"kernel_ms {tall_ms:.4f} plain_ms {tall_plain_ms:.4f} library_ms "
+        f"{tall_library_ms:.4f} bound_us {tall_bms * 1e3:.2f} ({tall_bby})")
+    if not tall_same:
+        fail("stem_conv1_bn_relu at the portrait bucket differs from its plain "
+             "version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=bby, library_ms=library_ms)
 
@@ -2481,10 +2531,344 @@ def run_workflow(torch, dev, card: str = "", tiny: bool = False):
     return counts
 
 
+FLAGSHIP_YAML = ("experiments/cfgs/resnet_v1_101_coco_trainvalminus_rcnn_end2end_"
+                 "relation_learn_nms_8epoch.yaml")
+
+
+def eval_yaml(path: str, tiny: bool) -> str:
+    """The flagship YAML (symbol, SCALES, dataset sets, TRAIN and TEST as
+    the repo ships them) with the trainer's clip of phase 5
+    (TPU.GRAD_CLIP 10: init_params weights diverge unclipped), written to
+    ``path``. ``tiny`` (a rehearsal on the CPU) adds the tiny images'
+    SCALES and buckets and family_cfg's cut proposal counts."""
+    with open(os.path.join(HERE, FLAGSHIP_YAML)) as f:
+        text = f.read()
+    text += "TPU:\n  GRAD_CLIP: 10.0\n"
+    if tiny:
+        text = text.replace("SCALES:\n- 600\n- 1000\n", "SCALES: [64, 96]\n")
+        text += "  IMAGE_BUCKETS: [[64, 96], [96, 64]]\n"
+        for key, val in (("RPN_PRE_NMS_TOP_N: 6000", "RPN_PRE_NMS_TOP_N: 128"),
+                         ("RPN_POST_NMS_TOP_N: 300", "RPN_POST_NMS_TOP_N: 48"),
+                         ("FIRST_N: 100", "FIRST_N: 16")):
+            text = text.replace(key, val)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_eval(torch, dev, card: str = "", tiny: bool = False,
+             use_pil: bool | None = None):
+    """Phase 13: the flagship end to end from a dataset on disk, through the
+    drivers a user runs, then the cached-proposal path with a real loader.
+    (a) a seeded mini COCO-layout dataset at the YAML's ./data/coco in a
+    temporary working directory (tools/mini_coco.py: train2014 and
+    valminusminival2014 of three images, minival2014 of six 480x640 and two
+    640x480 images, one to four boxes an image with COCO ids, a crowd box a
+    set), PNG files read through PIL where PIL imports, else the same
+    arrays handed to the loaders (``image_loader``); (b) experiments/train.py
+    for four steps through the TrainLoader (flipped entries, uint8 s2d
+    batches, init_params weights, TPU.GRAD_CLIP 10 as phase 5); (c)
+    experiments/test.py on the newest params file, found as
+    rcnn_end2end_train_test finds it, at score threshold 0 (every image
+    gives its 100 detections), bit-equal to the trained model's own
+    predictions on TestLoader's items; (d) pred_eval of the trained model
+    bit-equal to the same direct calls, and the kernel path held to the
+    plain path in the bands of phase 4; (e) the ground truth fed back as
+    detections gives AP 1.0, and the NumPy matching route the native
+    route's results; (f) fpn_learn_nms (calibrated as phase 10, TEST.HAS_RPN
+    false): generate_rpn_proposals(loader=None) over the test roidb, then
+    pred_eval_rcnn through the ProposalTestLoader. ``tiny`` (a rehearsal on
+    the CPU): the tiny trunk on 48x64 and 64x48 images. Returns the
+    launches of the driven paths."""
+    import tempfile
+
+    from relation_tpu_torch.config.defaults import load_config
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.evaluator import pred_eval, pred_eval_rcnn
+    from relation_tpu_torch.core.predictor import build_predict_fn
+    from relation_tpu_torch.core.rpn_workflow import generate_rpn_proposals
+    from relation_tpu_torch.core.trainer import build_model
+    from relation_tpu_torch.data.coco import COCO_CAT_IDS, coco_dataset
+    from relation_tpu_torch.data.eval import CocoEvaluator
+    from relation_tpu_torch.data.loader import (ProposalTestLoader, TestLoader,
+                                                TrainLoader)
+    from relation_tpu_torch.entry import family_cfg
+    from relation_tpu_torch.experiments import rcnn_end2end_train_test as e2e
+    from relation_tpu_torch.experiments import test as test_driver
+    from relation_tpu_torch.experiments import train as train_driver
+    from relation_tpu_torch.tools.mini_coco import array_loader, write_mini_coco
+    from relation_tpu_torch.utils import native
+    tag = "[eval flagship]"
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) the dataset, in a working directory of its own
+    if use_pil is None:
+        try:
+            import PIL  # noqa: F401
+            use_pil = True
+        except ImportError:
+            use_pil = False
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    cwd = os.getcwd()
+    os.chdir(tmp.name)
+    try:
+        land, port = ((48, 64), (64, 48)) if tiny else ((480, 640), (640, 480))
+        arrays = write_mini_coco(
+            "data/coco", {"train2014": [land, port], "valminusminival2014": [land],
+                          "minival2014": [land] * 6 + [port] * 2},
+            seed=13, all_cat_ids=COCO_CAT_IDS, png=use_pil)
+        image_loader = None if use_pil else array_loader(arrays)
+        log(f"{tag} (a) route: "
+            + ("PNG files decoded by PIL" if use_pil else
+               "PIL missing: the seeded arrays handed to the loaders "
+               "(image_loader=)")
+            + f"; matching route: {'native' if native.have_native() else 'NumPy'}"
+            f" (utils/native.py)")
+        yaml = eval_yaml("flagship.yaml", tiny)
+        common = ["--cfg", yaml, "--device", dev.type] + (
+            ["--tiny"] if tiny else [])
+        cfg = load_config(yaml)
+        cfg.TEST.SCORE_THRESH = 0.0
+        test_set = cfg.dataset.test_image_set
+        dataset = coco_dataset(cfg.dataset.dataset_path, test_set)
+        roidb = dataset.roidb()
+
+        # (b) the train driver, four steps, its batches recorded on the way
+        seen = []
+        load_one = TrainLoader._load_one
+
+        def recording(self, entry):
+            out = load_one(self, entry)
+            seen.append((bool(entry["flipped"]), out[0].dtype, out[0].shape))
+            return out
+        TrainLoader._load_one = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        try:
+            trained = train_driver.main(common + ["--steps", "4"],
+                                        image_loader=image_loader)
+        finally:
+            TrainLoader._load_one = load_one
+        counts = read_launches()
+        add(counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = [s * 1e3 for s in trained["step_s"]]
+        data_ms = [s * 1e3 for s in trained["data_s"]]
+        bad = [k for k, v in trained["metrics"].items() if not np.isfinite(v)]
+        kinds = sorted({(str(d), tuple(sh)) for _, d, sh in seen})
+        log(f"{tag} (b) train driver: {len(step_ms)} steps, total_loss "
+            f"{trained['metrics'].get('total_loss', float('nan')):.6f}; ms/step "
+            f"{', '.join(f'{x:.3f}' for x in step_ms)} (median of steps 2-4 "
+            f"{statistics.median(step_ms[1:]):.3f}), loader wait ms "
+            f"{', '.join(f'{x:.3f}' for x in data_ms)}; peak memory "
+            f"{peak_gb:.3f} GiB; checkpoint "
+            f"{os.path.getsize(trained['checkpoint']) / 2 ** 20:.1f} MiB, params "
+            f"{os.path.getsize(trained['params']) / 2 ** 20:.1f} MiB, both saved "
+            f"in {trained['save_s'] * 1e3:.0f} ms; images loaded "
+            f"{len(seen)} ({sum(f for f, _, _ in seen)} flipped) as {kinds}; "
+            f"launches {counts}; on {card}")
+        must = ["geom_bias", "geom_bias_bwd", "nms_keep_sorted"] + (
+            [] if tiny else ["stem_conv1_bn_relu"])
+        if (bad or len(step_ms) != 4 or not any(f for f, _, _ in seen)
+                or any(d != np.uint8 or len(sh) != 3 or sh[0] != 12
+                       for _, d, sh in seen)
+                or any(counts[k] <= 0 for k in must)):
+            fail(f"{tag} train driver: non-finite {bad}, {len(step_ms)} steps, "
+                 f"batches {kinds} (flipped {[f for f, _, _ in seen]}), launches "
+                 f"{counts}")
+
+        # (c) the test driver on the newest params file
+        ckpt = e2e.trained_params_path(yaml)
+        stats = {}
+        zero_counters()
+        t0 = time.perf_counter()
+        res, dets = test_driver.main(common + ["--ckpt", ckpt, "--thresh", "0"],
+                                     image_loader=image_loader, stats=stats)
+        torch.cuda.synchronize()
+        driver_s = time.perf_counter() - t0
+        counts = read_launches()
+        add(counts)
+        n = stats["images"]
+        split = ", ".join(f"{k} {stats[k + '_s'] / n * 1e3:.3f}"
+                          for k in ("data", "net", "fetch", "post"))
+        n_dets = sum(len(d) for d in dets.values())
+        log(f"{tag} (c) test driver on {os.path.basename(ckpt)}: {n} images in "
+            f"{driver_s:.2f} s (model built and loaded included); ms/image "
+            f"{split} (the reloaded model's first pass); "
+            f"{n_dets} detections; summarize {stats['summarize_s'] * 1e3:.3f} ms "
+            f"({'native' if stats['native'] else 'NumPy'} matching); AP "
+            f"{res['AP']:.4f} AR100 {res['AR100']:.4f} (random weights); "
+            f"launches {counts}; on {card}")
+
+        # the trained model's own predictions on TestLoader's items
+        model = trained["model"]
+        del trained
+        kw = {} if image_loader is None else {"image_loader": image_loader}
+        items = list(TestLoader(roidb, cfg, **kw))
+        predict = build_predict_fn(model, cfg)
+
+        def direct_pass():
+            out = {}
+            for image_id, img, info in items:
+                d = predict(img, info)["dets"].cpu().numpy()
+                out[image_id] = d[d[:, 0] >= 0]
+            return out
+        zero_counters()
+        direct = direct_pass()
+        add(read_launches())
+        same = lambda a, b: (a.keys() == b.keys()
+                             and all(np.array_equal(a[k], b[k]) for k in a))
+        if not same(dets, direct):
+            fail(f"{tag} the reloaded params' detections differ from the "
+                 f"trained model's")
+
+        # (d) pred_eval of the trained model (warm), then the plain path
+        stats_d = {}
+        zero_counters()
+        _, pe = pred_eval(model, cfg, dataset, roidb, stats=stats_d,
+                          loader=TestLoader(roidb, cfg, **kw))
+        add(read_launches())
+        with plain_kernels():
+            before = read_launches()
+            plain = direct_pass()
+            stray = launches_since(before)
+        errs = [f"image {k}: {e}" for k in plain
+                for e in match_dets(plain[k], direct[k])]
+        warm = ", ".join(f"{k} {stats_d[k + '_s'] / stats_d['images'] * 1e3:.3f}"
+                         for k in ("data", "net", "fetch", "post"))
+        log(f"{tag} (c, d) reloaded params vs the trained model: bit-equal; "
+            f"pred_eval (window {int(cfg.TPU.EVAL_PIPELINE_DEPTH)}, pinned "
+            f"copies) vs direct predictor calls: "
+            f"{'bit-equal' if same(pe, direct) else 'DIFFER'}; warm pass ms/image "
+            f"{warm}; kernel vs plain top-{TOP_K} (IoU>={IOU_MIN}, "
+            f"|ds|<={SCORE_ATOL}): "
+            f"{'OK' if not errs else f'{len(errs)} mismatches'}; on {card}")
+        if not same(pe, direct) or errs or stray:
+            for e in errs[:20]:
+                log(f"  {e}")
+            fail(f"{tag} pred_eval differs from the direct calls, the kernel "
+                 f"path leaves the plain path's bands, or the plain path "
+                 f"launched kernels {stray}")
+        if any(not np.isfinite(d).all() or d.shape[1] != 6 or not len(d)
+               for d in dets.values()) or len(dets) != len(roidb):
+            fail(f"{tag} bad detections: {[d.shape for d in dets.values()]}")
+        del model, predict, items
+        torch.cuda.empty_cache()
+
+        # (e) the ground truth as detections; the NumPy matching route
+        ev = CocoEvaluator(dataset)
+        for e in roidb:
+            keep = ~e["iscrowd"]
+            ev.add_detections(e["image_id"], np.concatenate(
+                [e["gt_classes"][keep, None].astype(np.float32),
+                 np.ones((int(keep.sum()), 1), np.float32),
+                 e["boxes"][keep]], 1))
+        t0 = time.perf_counter()
+        gt_res = ev.summarize()
+        gt_ms = (time.perf_counter() - t0) * 1e3
+        ap = {c: v for c, v in gt_res["per_class"].items() if v == v}
+        want = {int(c) for e in roidb for c in e["gt_classes"][~e["iscrowd"]]}
+        ev = CocoEvaluator(dataset)
+        for k, d in dets.items():
+            ev.add_detections(k, d)
+        lib = native._lib
+        native._lib = False
+        try:
+            t0 = time.perf_counter()
+            numpy_res = ev.summarize()
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            native._lib = lib
+        agree = json.dumps(numpy_res, sort_keys=True) == json.dumps(
+            res, sort_keys=True)
+        log(f"{tag} (e) ground truth as detections: AP {gt_res['AP']:.4f}, "
+            f"per-class AP {sorted(ap.items())} over the {len(want)} classes "
+            f"with non-crowd boxes ({gt_ms:.3f} ms); the test driver's "
+            f"detections on the NumPy route {numpy_ms:.3f} ms, results "
+            f"{'equal to' if agree else 'DIFFERENT from'} the native route's; "
+            f"on {card}")
+        if (gt_res["AP"] != 1.0 or set(ap) != want or not agree
+                or any(v != 1.0 for v in ap.values())):
+            fail(f"{tag} the evaluator: AP {gt_res['AP']}, per class {ap}, "
+                 f"classes {want}, routes agree {agree}")
+
+        # (f) the cached-proposal path with a real loader: fpn_learn_nms
+        fcfg = family_cfg("fpn_learn_nms", tiny_shapes=tiny)
+        fcfg.TEST.HAS_RPN = False
+        fcfg.TEST.SCORE_THRESH = 0.0
+        fcfg.dataset.test_image_set = test_set
+        if tiny:
+            fcfg.SCALES[0] = (64, 96)
+            fcfg.TPU.IMAGE_BUCKETS = [(64, 96), (96, 64)]
+        fmodel = init_params(build_model(fcfg, tiny=tiny, device=dev), seed=0)
+        first = next(iter(TestLoader(roidb[:1], fcfg, **kw)))
+        calibrate_heads(torch, fmodel, build_predict_fn(fmodel, fcfg),
+                        first[1], first[2])
+        torch.cuda.synchronize()
+        pkl = "minival2014_rpn.pkl"
+        zero_counters()
+        t0 = time.perf_counter()
+        generate_rpn_proposals(fmodel, fcfg, roidb, pkl, device=dev,
+                               loader=None if use_pil else TestLoader(
+                                   roidb, fcfg, **kw))
+        torch.cuda.synchronize()
+        dump_ms = (time.perf_counter() - t0) * 1e3 / len(roidb)
+        dump_counts = read_launches()
+        add(dump_counts)
+        import pickle
+        with open(pkl, "rb") as f:
+            props = pickle.load(f)
+        stats_f = {}
+        zero_counters()
+        _, fdets = pred_eval_rcnn(
+            fmodel, fcfg, dataset, roidb, pkl, stats=stats_f,
+            loader=None if use_pil else ProposalTestLoader(roidb, fcfg, pkl, **kw))
+        torch.cuda.synchronize()
+        rcnn_counts = read_launches()
+        add(rcnn_counts)
+        nf = stats_f["images"]
+        fsplit = ", ".join(f"{k} {stats_f[k + '_s'] / nf * 1e3:.3f}"
+                           for k in ("data", "net", "fetch", "post"))
+        log(f"{tag} (f) fpn_learn_nms, cached proposals: the dump "
+            f"(loader=None) {dump_ms:.3f} ms/image, {[len(p) for p in props]} "
+            f"proposals; pred_eval_rcnn over {nf} images, TOP_ROIS "
+            f"{int(fcfg.TEST.TOP_ROIS)}: ms/image {fsplit} (first pass); "
+            f"{sum(len(d) for d in fdets.values())} detections; launches "
+            f"dump {dump_counts}, pred_eval_rcnn {rcnn_counts}; on {card}")
+        fmust = ["nms_keep_sorted", "geom_bias", "fused_bias_attention"] + (
+            [] if tiny else ["stem_conv1_bn_relu"])
+        if (len(props) != len(roidb) or any(len(p) == 0 or not np.isfinite(p).all()
+                                            for p in props)
+                or len(fdets) != len(roidb)
+                or any(not np.isfinite(d).all() or not len(d)
+                       for d in fdets.values())
+                or any((dump_counts.get(k, 0) + rcnn_counts.get(k, 0)) <= 0
+                       for k in fmust)):
+            fail(f"{tag} the cached-proposal path: {len(props)} proposal sets, "
+                 f"{len(fdets)} images with detections, launches "
+                 f"{dump_counts} / {rcnn_counts}")
+        del fmodel
+        torch.cuda.empty_cache()
+        log(f"[e2e] eval flagship: train step {statistics.median(step_ms[1:]):.3f} "
+            f"ms (median of steps 2-4), test driver ms/image {split} (first "
+            f"pass), warm pred_eval ms/image {warm}, summarize "
+            f"{stats['summarize_s'] * 1e3:.3f} ms; fpn_learn_nms proposal dump "
+            f"{dump_ms:.3f} ms/image, pred_eval_rcnn ms/image {fsplit}; on {card}")
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk", "fpn",
-                                        "workflow"],
+                                        "workflow", "eval"],
                     default="all")
     args = ap.parse_args()
     try:
@@ -2574,8 +2958,13 @@ def main() -> None:
         checks = {k: checks[k] for k in (
             "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
             "fused_bias_attention")}
+    if args.phase == "eval":
+        checks = {k: checks[k] for k in (
+            "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
+            "fused_bias_attention", "fused_nms_relation_attention_skip")}
     nms_ran = (nms_kernels_a_call(torch, dev)
-               if args.phase in ("all", "kernels", "dcn", "workflow") else {})
+               if args.phase in ("all", "kernels", "dcn", "workflow", "eval")
+               else {})
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
     if args.phase in ("all", "kernels", "dcn"):
         check_nms_classic(torch, dev, np.random.RandomState(4),
@@ -2612,6 +3001,10 @@ def main() -> None:
         add(run_workflow(torch, dev, card))
         log(f"[done] workflow phase only: launches {launches}; no device line")
         return
+    if args.phase == "eval":
+        add(run_eval(torch, dev, card))
+        log(f"[done] eval phase only: launches {launches}; no device line")
+        return
     if args.phase == "all":
         flagship_launches, ms_image = run_flagship(torch, dev)
         add(flagship_launches)
@@ -2641,6 +3034,8 @@ def main() -> None:
     fpn_phase()
     torch.cuda.empty_cache()
     add(run_workflow(torch, dev, card))
+    torch.cuda.empty_cache()
+    add(run_eval(torch, dev, card))
     for name in SHAPES:
         split = {k.split("@", 1)[1]: v for k, v in launches.items()
                  if k.startswith(name + "@")}

@@ -26,6 +26,7 @@ from relation_tpu_torch.models.rpn import generate_proposals
 from relation_tpu_torch.ops.anchors import generate_anchors
 from relation_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from relation_tpu_torch.ops.nms import classwise_nms, soft_nms
+from relation_tpu_torch.utils.debug import tensor_stats
 
 _NEG_INF = -1e10
 
@@ -107,7 +108,9 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
     [max_per_image, 6]
     and the intermediate outputs (rois, roi_scores, cls_score, bbox_pred,
     fc2, and nms_multi_score, sorted_bbox, sorted_score, final_score of the
-    learned-NMS tail or cls_prob, pred_boxes of the classic one). image is
+    learned-NMS tail or cls_prob, pred_boxes of the classic one; with
+    TPU.DEBUG_MONITOR, 'monitor': {name: [min, max, mean]} of rois,
+    cls_score, bbox_deltas and dets, utils/debug.py::tensor_stats). image is
     s2d planar [12, H/2, W/2] or NHWC [H, W, 3] (f32, or uint8 before mean
     subtraction); im_info [3] = (h, w, scale). Inputs may live on the host:
     they are moved to the model's device. ``res4_folded``
@@ -152,6 +155,9 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
     precomputed = bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED)
     stds = tuple(cfg.TRAIN.BBOX_STDS) if precomputed else None
     means = tuple(cfg.TRAIN.BBOX_MEANS) if precomputed else None
+    # test.py --debug: the taps of the reference's monitor op
+    # (operator_py/monitor_op.py), returned as out["monitor"]
+    debug_monitor = bool(cfg.TPU.get("DEBUG_MONITOR", False))
 
     def classic_tail(cls_score, bbox_deltas, rois, roi_real, im_info):
         """softmax -> decoded, clipped boxes -> per-class NMS -> top
@@ -235,6 +241,10 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
                "feat": feat, "rpn_cls": rpn_cls, "rpn_bbox": rpn_bbox,
                "cls_score": cls_score, "bbox_pred": bbox_deltas, "fc2": fc2}
         out.update(tail(cls_score, bbox_deltas, fc2, rois, roi_real, im_info))
+        if debug_monitor:
+            out["monitor"] = {name: tensor_stats(x) for name, x in (
+                ("rois", rois), ("cls_score", cls_score),
+                ("bbox_deltas", bbox_deltas), ("dets", out["dets"]))}
         return out
 
     predict.tail = tail         # the stage after the head, for the profiler

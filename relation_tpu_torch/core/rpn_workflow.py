@@ -38,13 +38,12 @@ def generate_rpn_proposals(model, cfg, roidb, out_path: str, loader=None,
                            device="cuda") -> str:
     """RPN-only inference over ``loader`` (any iterable of ``(image_id,
     image, im_info)``, image NHWC [H, W, 3] or s2d [12, H/2, W/2], f32 or
-    uint8 before mean subtraction) with the TEST.PROPOSAL_* settings; dumps
-    each image's real proposals, divided by ``im_info[2]``, with their
-    scores as float32 [N, 5] to the pickle ``out_path``. C4: softmax, then
-    models/rpn.py::generate_proposals; FPN: generate_proposals_fpn (the
-    exact top-k, whatever TPU.FPN_TOPK says). ``roidb`` serves the
-    dataset's own loader, which is not ported yet (``loader=None`` raises).
-    Returns ``out_path``."""
+    uint8 before mean subtraction; by default data/loader.py::TestLoader
+    over ``roidb``) with the TEST.PROPOSAL_* settings; dumps each image's
+    real proposals, divided by ``im_info[2]``, with their scores as float32
+    [N, 5] to the pickle ``out_path``, in the loader's order. C4: softmax,
+    then models/rpn.py::generate_proposals; FPN: generate_proposals_fpn (the
+    exact top-k, whatever TPU.FPN_TOPK says). Returns ``out_path``."""
     from relation_tpu_torch.core.predictor import _image_from_u8
     from relation_tpu_torch.core.trainer import resolve_device
     from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
@@ -53,10 +52,8 @@ def generate_rpn_proposals(model, cfg, roidb, out_path: str, loader=None,
     from relation_tpu_torch.ops.anchors import generate_anchors
 
     if loader is None:
-        raise NotImplementedError(
-            "generate_rpn_proposals over a roidb needs the data loaders, "
-            "which are not ported yet; pass loader= an iterable of "
-            "(image_id, image, im_info)")
+        from relation_tpu_torch.data.loader import TestLoader
+        loader = TestLoader(roidb, cfg)
     dev = next(model.parameters()).device
     if dev.type != resolve_device(device).type:
         raise ValueError(f"generate_rpn_proposals(device={str(device)!r}) for "

@@ -4,28 +4,36 @@ experiments/rcnn_train_test.py):
   1. train the RPN alone (core/rpn_workflow.py::make_train_step_rpn);
   2. dump its proposals over the training images (<image_set>_rpn.pkl) and
      report their recall;
-  3. train the RCNN head on the cached proposals (TRAIN.TOP_ROIS of them an
-     image), with the bbox-target statistics of the roidb when
+  3. train the RCNN head on the cached proposals (every proposal of an
+     image's dump, as the JAX driver's rcnn_batch), with the bbox-target
+     statistics of the roidb's TRAIN.TOP_ROIS proposals when
      TRAIN.BBOX_NORMALIZATION_PRECOMPUTED is false; ``--train-shared``
-     freezes network.FIXED_PARAMS_SHARED;
-  4. save the checkpoint and the params file (core/checkpoint.py, the JAX
-     package's format) under <output_path>/<cfg>/<image_set>/.
+     freezes network.FIXED_PARAMS_SHARED; save the checkpoint and the params
+     file (core/checkpoint.py, the JAX package's format) under
+     <output_path>/<cfg>/<image_set>/;
+  4. with a dataset, dump the proposals of the test set
+     (<test_image_set>_rpn.pkl) and evaluate from them
+     (core/evaluator.py::pred_eval_rcnn, TEST.HAS_RPN false), if the test
+     set's annotations exist.
 
     python -m relation_tpu_torch.experiments.rcnn_train_test \\
-        --cfg experiments/cfgs/<fpn cfg>.yaml --synthetic 2 --steps 2 \\
-        [--tiny] [--train-shared] [--device cpu]
+        --cfg experiments/cfgs/<fpn cfg>.yaml [--synthetic N | --dataset-path ROOT] \\
+        [--steps K] [--tiny] [--train-shared] [--device cpu]
 
-``--synthetic N`` runs on N seeded images with one to three ground-truth
-boxes each, the same images in every stage (the JAX driver draws a fresh
-image every step and dumps four). A dataset (``--dataset-path``) and the
-evaluation from the proposal file need the data loaders and the evaluator,
-which are not ported yet: they raise NotImplementedError.
+``--dataset-path ROOT`` reads the COCO layout under ROOT (annotations/
+instances_<image_set>.json, images/<image_set>/), one image a batch from
+data/loader.py::TrainLoader. Without it the driver runs on ``--synthetic N``
+seeded images (4 if N is not given) with one to three ground-truth boxes
+each, the same images in every stage (the JAX driver draws a fresh image
+every step and dumps four), and stops after stage 3.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
+import pickle
 import sys
 
 import numpy as np
@@ -44,7 +52,7 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="the tiny trunk and 128x128 images")
     p.add_argument("--dataset-path", default="",
-                   help="a COCO-layout dataset (not ported yet)")
+                   help="override cfg.dataset.dataset_path (COCO layout)")
     p.add_argument("--train-shared", action="store_true",
                    help="freeze network.FIXED_PARAMS_SHARED in the RCNN stage "
                         "(reference function/train_rcnn.py:119-123)")
@@ -78,8 +86,20 @@ def synthetic_images(n: int, H: int, W: int, num_classes: int, max_gt: int,
     return out
 
 
+def rcnn_batch(b: dict, proposals: np.ndarray, R: int) -> dict:
+    """A one-image batch paired with its cached proposals [N, 5]: the first
+    R, scaled to the network input, as ``rois`` [1, R, 4] and ``rois_valid``
+    [1, R] (rcnn_batch of the JAX driver, experiments/rcnn_train_test.py)."""
+    rois = np.zeros((1, R, 4), np.float32)
+    n = min(len(proposals), R)
+    rois[0, :n] = proposals[:n, :4] * float(b["im_info"][0][2])
+    b.update(rois=rois, rois_valid=(np.arange(R) < n)[None])
+    return b
+
+
 def main(argv=None) -> dict:
-    """Runs the workflow; returns the paths it wrote and the last metrics."""
+    """Runs the workflow; returns the paths it wrote, the last metrics and,
+    with a dataset, stage 4's results."""
     args = parse_args(argv)
     from relation_tpu_torch.config.defaults import load_config
     from relation_tpu_torch.convert import init_params
@@ -92,13 +112,14 @@ def main(argv=None) -> dict:
                                                       make_train_step_rpn)
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  refreeze_state)
+    from relation_tpu_torch.data.coco import coco_dataset, filter_roidb
+    from relation_tpu_torch.data.loader import TrainLoader
     from relation_tpu_torch.utils.logging import Speedometer, create_logger
 
-    if args.dataset_path or not args.synthetic:
-        raise NotImplementedError(
-            "training on a dataset needs the data loaders and stage 4 the "
-            "evaluator, which are not ported yet; run with --synthetic N")
     cfg = load_config(args.cfg)
+    if args.dataset_path:
+        cfg.dataset.dataset_path = args.dataset_path
+    synthetic = bool(args.synthetic) or not args.dataset_path
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]
     logger, out_path = create_logger(cfg.output_path or "output", cfg_name,
                                      cfg.dataset.image_set)
@@ -106,36 +127,48 @@ def main(argv=None) -> dict:
                         seed=0)
     max_gt = int(cfg.TPU.MAX_GT)
     n_steps = args.steps or 10
-    H, W = (128, 128) if args.tiny else tuple(sorted(
-        tuple(b) for b in cfg.TPU.IMAGE_BUCKETS)[0])
-    images = synthetic_images(args.synthetic, H, W, int(cfg.dataset.NUM_CLASSES),
-                              max_gt)
-    roidb = [im["roidb"] for im in images]
+    root = cfg.dataset.dataset_path
+    if synthetic:
+        H, W = (128, 128) if args.tiny else tuple(sorted(
+            tuple(b) for b in cfg.TPU.IMAGE_BUCKETS)[0])
+        images = synthetic_images(args.synthetic or 4, H, W,
+                                  int(cfg.dataset.NUM_CLASSES), max_gt)
+        roidb = [im["roidb"] for im in images]
+        loader = [(i, im["image"], im["im_info"]) for i, im in enumerate(images)]
 
-    def batch_of(i, **extra):
-        im = images[i % len(images)]
-        b = {k: im[k][None] for k in ("image", "im_info", "gt_boxes", "gt_valid")}
-        b.update({k: v[None] for k, v in extra.items()})
-        return b
+        def batch_of(i):
+            im = images[i % len(images)]
+            return {k: im[k][None] for k in ("image", "im_info", "gt_boxes",
+                                              "gt_valid")}
+        rpn_batches = (batch_of(i) for i in range(n_steps))
+    else:
+        roidb = filter_roidb(coco_dataset(root, cfg.dataset.image_set).roidb())
+        loader = None                      # the TestLoader over the roidb
+        one = TrainLoader(roidb, cfg, batch_size=1, num_prefetch=0)
+
+        def batch_of(i):
+            return one._make_batch([i % len(roidb)])
+
+        def cycle():
+            while True:
+                yield from TrainLoader(roidb, cfg, batch_size=1)
+        rpn_batches = itertools.islice(cycle(), n_steps)
 
     state = create_train_state(model, cfg, seed=0)
     logger.info("stage 1: RPN training")
     rpn_step = make_train_step_rpn(model, cfg, max_gt=max_gt, device=args.device)
     speedo = Speedometer(logger, 1, max(n_steps // 5, 1))
-    for i in range(n_steps):
-        state, m = rpn_step(state, batch_of(i))
+    for i, batch in enumerate(rpn_batches):
+        state, m = rpn_step(state, batch)
         speedo.update(0, i, m)
 
     logger.info("stage 2: proposal generation")
     pkl = os.path.join(out_path, f"{cfg.dataset.image_set}_rpn.pkl")
-    generate_rpn_proposals(
-        model, cfg, roidb, pkl, device=args.device,
-        loader=[(i, im["image"], im["im_info"]) for i, im in enumerate(images)])
-    top_rois = int(cfg.TRAIN.TOP_ROIS)
-    prop_roidb = load_proposal_roidb(roidb, pkl, top_rois=top_rois)
-    rec = evaluate_recall(prop_roidb, [np.concatenate(
-        [e["proposals"], np.zeros((len(e["proposals"]), 1), np.float32)], 1)
-        for e in prop_roidb])
+    generate_rpn_proposals(model, cfg, roidb, pkl, loader=loader,
+                           device=args.device)
+    with open(pkl, "rb") as f:
+        props = pickle.load(f)
+    rec = evaluate_recall(roidb, props)
     logger.info("proposals -> %s; recall AR(all)=%.3f area-pct=%s" % (
         pkl, rec["ar"], {k: round(v, 3)
                          for k, v in rec["proposal_area_pct"].items()}))
@@ -143,6 +176,8 @@ def main(argv=None) -> dict:
     logger.info("stage 3: RCNN training on cached proposals")
     bbox_means = bbox_stds = None
     if not bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED):
+        prop_roidb = load_proposal_roidb(roidb, pkl,
+                                         top_rois=int(cfg.TRAIN.TOP_ROIS))
         means_k, stds_k = add_bbox_regression_stats(
             prop_roidb, int(cfg.dataset.NUM_CLASSES), bool(cfg.CLASS_AGNOSTIC),
             float(cfg.TRAIN.BBOX_REGRESSION_THRESH))
@@ -155,19 +190,15 @@ def main(argv=None) -> dict:
         state = refreeze_state(state, cfg, cfg.network.FIXED_PARAMS_SHARED)
         logger.info("stage 3 train_shared: frozen prefixes %s"
                     % list(cfg.network.FIXED_PARAMS_SHARED))
-    R = max(max((len(e["proposals"]) for e in prop_roidb), default=1), 8)
+    R = max(max((len(p) for p in props), default=1), 8)
     rcnn_step = make_train_step_rcnn(model, cfg, max_rois=R, max_gt=max_gt,
                                      bbox_means=bbox_means, bbox_stds=bbox_stds,
                                      train_shared=args.train_shared,
                                      device=args.device)
     speedo = Speedometer(logger, 1, max(n_steps // 5, 1))
     for i in range(n_steps):
-        props = prop_roidb[i % len(prop_roidb)]["proposals"]
-        scale = float(images[i % len(images)]["im_info"][2])
-        rois = np.zeros((R, 4), np.float32)
-        rois[:len(props)] = props * scale
-        state, m = rcnn_step(state, batch_of(
-            i, rois=rois, rois_valid=np.arange(R) < len(props)))
+        state, m = rcnn_step(state, rcnn_batch(batch_of(i),
+                                               props[i % len(props)], R))
         speedo.update(1, i, m)
 
     ckpt = save_checkpoint(os.path.join(out_path, "rcnn_alt-final.ckpt"), state)
@@ -175,8 +206,30 @@ def main(argv=None) -> dict:
                          model)
     logger.info("alternate workflow done; total_loss=%.4f"
                 % float(m["total_loss"]))
-    return {"proposals": pkl, "checkpoint": ckpt, "params": params,
-            "metrics": {k: float(v) for k, v in m.items()}}
+    out = {"proposals": pkl, "checkpoint": ckpt, "params": params,
+           "metrics": {k: float(v) for k, v in m.items()}}
+
+    # stage 4: the test set from its cached proposals (TEST.HAS_RPN false)
+    if not synthetic:
+        from relation_tpu_torch.core.evaluator import pred_eval_rcnn
+        s_test = cfg.dataset.test_image_set
+        test_ann = os.path.join(root, "annotations", f"instances_{s_test}.json")
+        if os.path.exists(test_ann):
+            test_ds = coco_dataset(root, s_test)
+            test_roidb = test_ds.roidb()
+            test_pkl = os.path.join(out_path, f"{s_test}_rpn.pkl")
+            generate_rpn_proposals(model, cfg, test_roidb, test_pkl,
+                                   device=args.device)
+            results, dets = pred_eval_rcnn(
+                model, cfg, test_ds, test_roidb, test_pkl, logger,
+                cache_path=os.path.join(out_path, "detections.pkl"),
+                ignore_cache=True)
+            logger.info(f"stage 4 eval: {results}")
+            out.update(test_proposals=test_pkl, results=results,
+                       detections=dets)
+        else:
+            logger.info(f"no test annotations at {test_ann}; skipping stage 4")
+    return out
 
 
 if __name__ == "__main__":

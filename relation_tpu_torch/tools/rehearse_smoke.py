@@ -1,6 +1,6 @@
 """Rehearse chip_smoke.py's end-to-end phases on the CPU, at the tiny size.
 
-    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow]
+    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow|eval]
 
 A CUDA kernel cannot run without a card, so this is no check of the kernels:
 it finds wrong paths, arguments, shapes and control flow in chip_smoke.py
@@ -15,8 +15,11 @@ classic NMS tail and the offset seeding, not the deformable conv), then
 ``run_fused_flagship``, ``run_fused_trunk`` and ``run_fpn`` (the full-depth
 trunk and FPN models, as entry() builds them, on a 64x128 image), then the
 FPN ``run_training`` of the three families with ``tiny=True``, then
-``run_workflow`` (phase 12; ``--phase workflow`` rehearses it alone). It
-prints what the script prints; its times are CPU times and mean nothing.
+``run_workflow`` (phase 12; ``--phase workflow`` rehearses it alone), then
+``run_eval`` (phase 13: the drivers on a mini dataset of 48x64 and 64x48
+images; ``--phase eval`` rehearses it alone, ``--no-pil`` takes its route
+for a machine without PIL). It prints what the script prints; its times
+are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -100,13 +103,21 @@ def main() -> None:
     import argparse
     import chip_smoke
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "workflow"], default="all")
+    ap.add_argument("--phase", choices=["all", "workflow", "eval"],
+                    default="all")
+    ap.add_argument("--no-pil", action="store_true",
+                    help="phase 13 as on a machine without PIL")
     args = ap.parse_args()
     install_stubs()
     cpu = torch.device("cpu")
     card = "the CPU (rehearsal)"
     if args.phase == "workflow":
         chip_smoke.run_workflow(torch, cpu, card=card, tiny=True)
+        print("rehearsal done: control flow only, no kernel ran")
+        return
+    if args.phase == "eval":
+        chip_smoke.run_eval(torch, cpu, card=card, tiny=True,
+                            use_pil=False if args.no_pil else None)
         print("rehearsal done: control flow only, no kernel ran")
         return
     chip_smoke.run_flagship(torch, cpu, tiny=True)
@@ -122,6 +133,8 @@ def main() -> None:
         chip_smoke.run_training(torch, cpu, card=card, tiny=True, family=family,
                                 dense_steps=4, fused_steps=0)
     chip_smoke.run_workflow(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_eval(torch, cpu, card=card, tiny=True,
+                        use_pil=False if args.no_pil else None)
     print("rehearsal done: control flow only, no kernel ran")
 
 

@@ -81,7 +81,9 @@ def test_proposal_dump_matches_jax_and_pickles_cross_read(name, tmp_path,
     within 1e-4 px and scores within 1e-5; from its own trunk (the two
     frameworks' f32 convolutions round differently) boxes within 1e-3 px.
     Each package's load_proposal_roidb reads the other's pickle to the same
-    roidb; loader=None raises until the data loaders are ported."""
+    roidb; loader=None reads the roidb's image files through the TestLoader
+    (a roidb of no files raises; tests/test_torch_evaluator.py dumps a
+    dataset's)."""
     cfg = _proposal_cfg(name)
     jmodel, params = jax_tiny_family(cfg)
     items = _images()
@@ -117,7 +119,7 @@ def test_proposal_dump_matches_jax_and_pickles_cross_read(name, tmp_path,
         for ea, eb in zip(a, b):
             assert set(ea) == set(eb)
             np.testing.assert_array_equal(ea["proposals"], eb["proposals"])
-    with pytest.raises(NotImplementedError, match="loader"):
+    with pytest.raises(FileNotFoundError, match="im0"):
         tw.generate_rpn_proposals(model, cfg, roidb, jpath, device="cpu")
 
 
@@ -544,8 +546,9 @@ def test_driver_synthetic_run_loads_in_jax(tmp_path, monkeypatch):
     want = to_jax_params(t_load(out["params"], port))
     assert set(loaded) == set(want)
     assert all(np.array_equal(loaded[k], want[k]) for k in want)
-    with pytest.raises(NotImplementedError):
-        main(["--cfg", yaml, "--dataset-path", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="instances_"):
+        main(["--cfg", yaml, "--dataset-path", str(tmp_path), "--device", "cpu",
+              "--tiny"])
 
 
 @pytest.mark.parametrize("family,yaml", [

@@ -8,10 +8,12 @@
     python3 chip_smoke.py --phase fpn      # build, FPN kernel checks, phases 10-11
     python3 chip_smoke.py --phase workflow # build, rows 1, 2, 4, 5, 7, phase 12
     python3 chip_smoke.py --phase eval     # build, rows 1, 2, 4, 5, 7, 9, phase 13
+    python3 chip_smoke.py --phase dp       # build, rows 1, 2, 4, 5, 7, 9, roi_pool, phase 14
+    python3 chip_smoke.py --phase reference  # the same checks, phase 15
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
-2. Holds each of the twelve kernels against its plain PyTorch version on
+2. Holds each of the thirteen kernels against its plain PyTorch version on
    the card, at the shapes the driven models give it (the geometric bias at
    its seven launch shapes, its backward at five, among them the alternate
    workflow's head over 1016 rows against 300 keys, predict_rcnn's over
@@ -123,9 +125,34 @@
    roidb (loader=None) and pred_eval_rcnn through the ProposalTestLoader.
    Prints ms/step, ms/image with its data/net/fetch/post split, the
    summarize time and the routes taken.
-14. Prints the launches of rows 1, 2, 4, 7 and 9 by shape, one JSON line
-   describing every kernel (launches summed over the driven paths), then
-   the device line.
+14. Data parallelism over torch.distributed (run_dp): two gloo ranks
+   spawned on the one card (a file:// store; NCCL refuses two ranks on one
+   GPU). The flagship YAML's train step in f32, one global batch of two
+   images of three boxes, one a rank, against one process's step on the
+   same two images from the same init_params(seed=0) weights and seed:
+   every loss, the update's global L2 norm and every leaf's update within
+   1e-3, both ranks' parameters bit-equal. Then pred_eval over the two
+   ranks on a seeded mini COCO dataset of five images in two buckets (a
+   partial group) against the sequential pred_eval, bit-equal (else held
+   to phase 4's bands and reported). Prints ms/step and ms/image of both
+   routes; the ranks' launches are read in their processes.
+15. The reference-weights path (run_reference): the flagship written as an
+   mx.nd.save v2 file under the reference's names and MXNet layouts,
+   converted by relation_tpu_torch/tools/convert_reference_params.py (round
+   trip bit-equal), evaluated by ``python -m
+   relation_tpu_torch.experiments.test --roi-method auto`` in a process of
+   its own (it must pick roi_method pool and the four parity keys), the
+   same requests in this process with the kernels and with the plain
+   versions in phase 4's bands, and two flagship train steps plus an
+   unclipped pair with TPU.ROI_METHOD='pool' (the ROIPooling kernel forward
+   and backward, kernel step against plain step within 1e-3). The
+   ROIPooling kernel's own check (in phase 2) runs at the C4 head's shape
+   in f32 and bf16, at the portrait bucket's 50x64 map in bf16 and at the
+   four FPN levels of a 608x1024 image; inference launches the forward
+   without the argmax, the train step the forward with it.
+16. Prints the launches of rows 1, 2, 4, 7, 9 and roi_pool by shape, one
+   JSON line describing every kernel (launches summed over the driven
+   paths), then the device line.
 
 Any failure exits non-zero without the last line. Needs no network; the
 kernels build into relation_tpu_torch/_build/.
@@ -1029,6 +1056,124 @@ def check_col2im(torch, dev, rng):
     return result
 
 
+def roi_pool_bound(K, feat, rois, scale, P=7, argmax=False):
+    """(bound_ms, bound_by) of one ROIPooling forward: the map read once,
+    the ROIs, the pooled values written once (and their int32 argmax, with
+    ``argmax``: the training forward); a comparison an element of every bin
+    of these ROIs at the f32 rate."""
+    H, W, C = feat.shape
+    R = rois.shape[0]
+    hs, he, ws, we = K.roi_pool_bins(rois, scale, P, H, W)
+    cells = float(((he - hs)[:, :, None] * (we - ws)[:, None, :]).sum())
+    nbytes = (H * W * C * feat.element_size() + R * 16
+              + R * P * P * C * (feat.element_size() + (4 if argmax else 0)))
+    return bound(nbytes, cells * C, F32_PEAK)
+
+
+def check_roi_pool(torch, dev, rng):
+    """Exact ROIPooling (no Pallas counterpart: the JAX function is plain
+    jnp). First the bin arithmetic's division on the card: n / d of two
+    CUDA tensors for every n up to 4096 and the divisors 1, 2, 3, 6, 7, 14,
+    bit-equal to the CPU's IEEE division (a CUDA tensor divided by a host
+    scalar is multiplied by the reciprocal; the count of the quotients that
+    differs is printed). Then the kernel against its plain version at the
+    C4 head's shape (300 proposals of a 600x1000 image on the 38x64x256
+    map, 1/16) in f32 and bf16, at the portrait bucket's (300 proposals of
+    an 800x600 image on the 50x64x256 map) in bf16, and at the four FPN
+    levels of a 608x1024 image (152x256 .. 19x32, 256 channels) with the
+    ROIs of 1000 proposals dispatched there, bf16: values and argmax equal
+    (maxima of the inputs, the first in scan order), the inference forward
+    (no argmax) bit-equal to the training forward, the backward's f32
+    atomics within 1e-5 of the plain gradient's largest element (the plain
+    version summing the same cotangent, rounded to feat's dtype; bf16: the
+    kernel's sum, rounded once, within one bf16 step of the plain sum).
+    Times the inference forward, the training forward (with the argmax,
+    against its own bound), the backward and the plain version at each
+    shape; the JSON row is the C4 head's bf16 inference forward, the one
+    pred_eval launches."""
+    from relation_tpu_torch.models.fpn import DISPATCH_STRIDES, roi_level_dispatch
+    from relation_tpu_torch.ops.kernels import roi_pool as K
+    num = torch.arange(1, 4097, device=dev)
+    for d in (1, 2, 3, 6, 7, 14):
+        if not torch.equal(K.f32_div(num, d).cpu(), K.f32_div(num.cpu(), d)):
+            fail(f"roi_pool: f32 division by {d} on the card is not IEEE-exact")
+    recip = int(((num.float() / 7.0).cpu() != K.f32_div(num.cpu(), 7)).sum())
+    log(f"[kernel] roi_pool f32_div: n / d of two CUDA tensors bit-equal to the "
+        f"CPU's for n <= 4096, d in (1, 2, 3, 6, 7, 14); a CUDA tensor / 7.0 "
+        f"(host scalar) differs at {recip} of 4096")
+    cases = [("C4 head", 38, 64, 1.0 / 16, random_boxes(rng, 300), dt)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(("C4 head, portrait", 50, 64, 1.0 / 16,
+                  random_boxes(rng, 300, im_w=600.0, im_h=800.0), torch.bfloat16))
+    # proposals of 16 to 900 px a side, so that every level gets some
+    c = rng.uniform([0, 0], [1000, 600], (1000, 2))
+    wh = np.exp(rng.uniform(np.log(16), np.log(900), (1000, 2)))
+    b = np.concatenate([c - wh / 2, c + wh / 2], 1)
+    b[:, 0::2] = b[:, 0::2].clip(0, 999)
+    b[:, 1::2] = b[:, 1::2].clip(0, 599)
+    props = torch.tensor(b.astype(np.float32), device=dev)
+    fid = roi_level_dispatch(props)
+    for i, s in enumerate(DISPATCH_STRIDES):
+        cases.append((f"FPN P{i + 2}", 608 // s, 1024 // s, 1.0 / s,
+                      props[fid == i].cpu().numpy(), torch.bfloat16))
+    result = None
+    for label, H, W, scale, boxes, dt in cases:
+        feat = torch.tensor(rng.randn(H, W, 256).astype(np.float32),
+                            device=dev).to(dt)
+        rois = torch.tensor(np.asarray(boxes, np.float32), device=dev)
+        cot = torch.tensor(rng.randn(len(boxes), 7, 7, 256).astype(np.float32),
+                           device=dev)
+        f = feat.clone().requires_grad_()
+        got = K.roi_pool(f, rois, scale, 7)
+        (got.float() * cot).sum().backward()
+        # the kernel's cotangent arrives in feat's dtype: the plain version
+        # sums the same values, in f32
+        ref = feat.float().clone().requires_grad_()
+        want = K.roi_pool_reference(ref, rois, scale, 7)
+        (want * cot.to(dt).float()).sum().backward()
+        got, want = got.detach(), want.detach()
+        _, k_arg = K._launch(feat, rois, scale, 7)
+        p_arg = K.roi_pool_argmax_reference(feat, rois, scale, 7)
+        infer, _ = K._launch(feat, rois, scale, 7, with_argmax=False)
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max())
+        arg_ok = bool(torch.equal(k_arg.long(), p_arg))
+        infer_ok = bool(torch.equal(infer, got))
+        top = float(ref.grad.abs().max())
+        if dt == torch.float32:
+            g_err = float((f.grad - ref.grad).abs().max())
+            g_ok = g_err <= 1e-5 * top
+        else:
+            g = ref.grad.to(dt).float()
+            g_err = float((f.grad.float() - g).abs().max())
+            g_ok = bool(((f.grad.float() - g).abs() <= g.abs() * 2.0 ** -7).all())
+        ok = err == 0 and arg_ok and g_ok and infer_ok
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        ms = time_ms(torch, lambda: K._launch(feat, rois, scale, 7,
+                                              with_argmax=False))
+        train_ms = time_ms(torch, lambda: K._launch(feat, rois, scale, 7))
+        argmax = k_arg
+        bwd_ms = time_ms(torch, lambda: K._launch_bwd(cot.to(dt), argmax, H, W))
+        plain_ms = time_ms(torch, lambda: K.roi_pool_reference(feat, rois,
+                                                               scale, 7),
+                           inner=2, reps=7)
+        bms, bby = roi_pool_bound(K, feat, rois, scale)
+        tbms, tbby = roi_pool_bound(K, feat, rois, scale, argmax=True)
+        log(f"[kernel] roi_pool {label} R={len(boxes)} {H}x{W}x256 {name}: max "
+            f"abs err {err:.3e}, argmax equal {arg_ok}, inference forward "
+            f"equal {infer_ok}, grad max abs err {g_err:.3e} of max {top:.3e}, "
+            f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} (no argmax, bound_us "
+            f"{bms * 1e3:.2f} {bby}) train_fwd_ms {train_ms:.4f} (argmax, "
+            f"bound_us {tbms * 1e3:.2f} {tbby}) bwd_ms {bwd_ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms none")
+        if not ok:
+            fail(f"roi_pool {label} {name} disagrees with its plain version")
+        if label == "C4 head" and dt == torch.bfloat16:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=bby, library_ms=None)
+    return result
+
+
 def jitter_bn(torch, model, rng) -> None:
     """Non-trivial frozen-BN statistics (init_params leaves BN at identity,
     which would hide a fold that mixes up its scale and its shift)."""
@@ -1265,14 +1410,16 @@ COUNTERS = {"geom_bias": ("geom_bias", "launches"),
             "fused_proj_bottleneck": ("bottleneck_proj", "launches"),
             "fused_geometric_bias_skip": ("geom_bias", "skip_launches"),
             "fused_bias_attention": ("bias_attention", "launches"),
-            "fused_bias_attention_skip": ("bias_attention", "skip_launches")}
+            "fused_bias_attention_skip": ("bias_attention", "skip_launches"),
+            "roi_pool": ("roi_pool", "launches")}
 # name in the JSON line -> (module, dict of its launches by shape): the rows
 # whose launches mix shapes, so that launches x (ms - bound) splits by shape
 SHAPES = {"geom_bias": ("geom_bias", "launch_shapes"),
           "nms_keep_sorted": ("nms_kernel", "launch_shapes"),
           "geom_bias_bwd": ("geom_bias", "bwd_launch_shapes"),
           "fused_bias_attention": ("bias_attention", "launch_shapes"),
-          "fused_nms_relation_attention_skip": ("nms_attention", "launch_shapes")}
+          "fused_nms_relation_attention_skip": ("nms_attention", "launch_shapes"),
+          "roi_pool": ("roi_pool", "launch_shapes")}
 INFERENCE_KERNELS = ("geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu",
                      "fused_nms_relation_attention_skip", "fused_bias_attention")
 
@@ -1319,14 +1466,18 @@ def plain_kernels():
     differentiates (this harness's comparison only; the port itself
     dispatches by device)."""
     import relation_tpu_torch.models.backbone as bb
+    import relation_tpu_torch.models.detector as det
+    import relation_tpu_torch.models.fpn as fpn
     import relation_tpu_torch.models.relation as rel
     import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
     from relation_tpu_torch.ops.kernels import (bias_attention, bottleneck_proj,
                                                 dconv_col2im, geom_bias,
                                                 nms_attention, nms_kernel, res4,
-                                                stem)
+                                                roi_pool, stem)
     swaps = [(deform, "dconv_col2im", dconv_col2im.dconv_col2im_reference),
+             (det, "roi_pool", roi_pool.roi_pool_reference),
+             (fpn, "roi_pool", roi_pool.roi_pool_reference),
              (bb, "fused_bottleneck_stack", res4.bottleneck_stack_reference),
              (bb, "fused_proj_bottleneck", bottleneck_proj.proj_bottleneck_reference),
              (bb, "stem_conv1_bn_relu",
@@ -1963,7 +2114,7 @@ def training_batch(H, W, B=2, n_gt=3, max_gt=16):
 
 def run_training(torch, dev, card: str = "", tiny: bool = False,
                  family: str = "flagship", dense_steps: int = 3,
-                 fused_steps: int = 2):
+                 fused_steps: int = 2, roi_method: str = "align"):
     """Train steps of one family on the kernels (``dense_steps`` with the
     dense learned-NMS attention, then ``fused_steps`` with the fully fused
     one), then one unclipped step from the same start on the kernels and on
@@ -1971,8 +2122,11 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     from zero, and its unclipped pair of steps computes in f32 (see below);
     an FPN family gets its prediction layers calibrated as in phase 10.
     ``tiny`` (a rehearsal on the CPU) takes the tiny trunk and a 64x128
-    image. Returns (the launch counts of the clipped steps, the median
-    ms/step after one warm-up, the peak memory in GiB)."""
+    image. ``roi_method`` is TPU.ROI_METHOD ("pool": the ROIPooling kernel,
+    forward and backward, once an image a step). Returns (the launch counts
+    of the clipped steps, the median ms/step after one warm-up, the peak
+    memory in GiB)."""
+    from relation_tpu_torch.ops.kernels import roi_pool as RP
     from relation_tpu_torch.convert import init_params
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
@@ -1982,12 +2136,14 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     batch = training_batch(H, W)
     B = batch["image"].shape[0]
     dcn, fpn = family.startswith("dcn"), family.startswith("fpn")
-    tag = f"[train {family}]"
+    pool = roi_method == "pool"
+    tag = f"[train {family}{' roi_method=pool' if pool else ''}]"
     steps = dense_steps + fused_steps
 
     def fresh(clip, weights=None, f32=False):
         cfg = family_cfg(family, tiny_shapes=tiny)
         cfg.TPU.GRAD_CLIP = clip
+        cfg.TPU.ROI_METHOD = roi_method
         if f32:
             cfg.TPU.COMPUTE_DTYPE = cfg.TPU.HEAD_DTYPE = "float32"
             cfg.TPU.DCN_POOL_DTYPE = "float32"
@@ -2023,6 +2179,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
+    RP.bwd_launches = 0
     history, times = [], []
     for i in range(steps):
         # the first steps on the dense learned-NMS attention, the rest on
@@ -2072,8 +2229,11 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
             "stem_conv1_bn_relu": 0 if tiny else steps,
             "nms_keep_sorted": steps * B,
             "geom_bias": geom,
-            "dconv_col2im": 3 * steps if dcn and not tiny else 0}
+            "dconv_col2im": 3 * steps if dcn and not tiny else 0,
+            "roi_pool": steps * B if pool and not fpn else 0}
     short = {k: (launches[k], n) for k, n in want.items() if launches[k] < n}
+    if pool and RP.bwd_launches < launches["roi_pool"]:
+        short["roi_pool backward"] = (RP.bwd_launches, launches["roi_pool"])
     if launches["dconv_col2im"] != want["dconv_col2im"]:
         short["dconv_col2im"] = (launches["dconv_col2im"], want["dconv_col2im"])
     if short:
@@ -2110,7 +2270,8 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     # a dense step, so every kernel of the clipped dense steps but the stem
     # in f32
     missing = [k for k in ("geom_bias", "geom_bias_bwd", "fused_bias_attention",
-                           "nms_keep_sorted", "stem_conv1_bn_relu", "dconv_col2im")
+                           "nms_keep_sorted", "stem_conv1_bn_relu", "dconv_col2im",
+                           "roi_pool")
                if want[k] and not first_launches[k]
                and not (f32 and k == "stem_conv1_bn_relu")]
     if missing:
@@ -2865,10 +3026,350 @@ def run_eval(torch, dev, card: str = "", tiny: bool = False,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 14 and 15: data parallelism, and the reference-weights path
+# --------------------------------------------------------------------------
+
+def launches_of(counts: dict) -> dict:
+    """COUNTERS names (and "name@shape") of a parallel/launch.py::
+    kernel_launches() snapshot taken in another process."""
+    out = {name: counts.get(f"{mod}.{attr}", 0)
+           for name, (mod, attr) in COUNTERS.items()}
+    for name, (mod, attr) in SHAPES.items():
+        for shape, v in counts.get(f"{mod}.{attr}", {}).items():
+            out[f"{name}@{shape}"] = v
+    return out
+
+
+def mini_dataset(tiny: bool, seed: int, use_pil: bool | None = None):
+    """Five test images of the flagship YAML's minival2014 at ./data/coco,
+    three 480x640 and two 640x480 (two buckets, an odd count; 48x64 and
+    64x48 for a rehearsal): PNG files where PIL imports, else None files
+    and the arrays to hand the loaders. Returns (arrays or None, route)."""
+    from relation_tpu_torch.data.coco import COCO_CAT_IDS
+    from relation_tpu_torch.tools.mini_coco import write_mini_coco
+    if use_pil is None:
+        try:
+            import PIL  # noqa: F401
+            use_pil = True
+        except ImportError:
+            use_pil = False
+    land, port = ((48, 64), (64, 48)) if tiny else ((480, 640), (640, 480))
+    arrays = write_mini_coco("data/coco", {"minival2014": [land] * 3 + [port] * 2},
+                             seed=seed, all_cat_ids=COCO_CAT_IDS, png=use_pil)
+    return (None if use_pil else arrays,
+            "PNG files" if use_pil else "arrays handed to the loaders")
+
+
+def run_dp(torch, dev, card: str = "", tiny: bool = False):
+    """Phase 14: data parallelism over torch.distributed. Two gloo ranks
+    spawned on the one card (parallel/launch.py::spawn, a file:// store;
+    NCCL refuses two ranks on one GPU), each on cuda:0.
+    (a) Train: the flagship YAML (TPU.GRAD_CLIP 10, convs and head in f32:
+    a bf16 step is not reproducible to 1e-3), init_params(seed=0), a
+    state seeded with 0, one global batch of two 608x1024 s2d images with
+    three boxes each, one image a rank, three steps; the first step against
+    one process's step on the same two images: every loss within 1e-3
+    relative, the update's global L2 norm within 1e-3, every leaf's update
+    within 1e-3 of the update's global norm, both ranks' parameters
+    bit-equal (sha256 of every tensor). ms/step of both routes: the median
+    of steps 2 and 3.
+    (b) Inference: pred_eval over the process group (one image of each
+    same-bucket pair a rank, the partial group padded) on a seeded mini COCO
+    dataset of five images in two buckets, init_params(seed=0) weights in
+    the YAML's dtypes, score threshold 0, against the sequential pred_eval:
+    bit-equal expected; where not, reported and held to phase 4's top-50
+    bands. ms/image (net) of both routes; the two ranks share the card.
+    The launches of both routes, both ranks' read from their processes.
+    ``tiny``: the tiny trunk at 64x128 and 48x64 on the CPU."""
+    import tempfile
+
+    from relation_tpu_torch.config.defaults import load_config
+    from relation_tpu_torch.entry import BUCKET
+    from relation_tpu_torch.parallel.launch import (pred_eval_rank, spawn,
+                                                    train_and_eval_rank,
+                                                    train_steps, update_agreement)
+    from relation_tpu_torch.parallel.mesh import make_mesh
+    tag = "[dp]"
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    cwd = os.getcwd()
+    os.chdir(tmp.name)
+    try:
+        arrays, route = mini_dataset(tiny, seed=14)
+        yaml = eval_yaml("flagship.yaml", tiny)
+        train_cfg = load_config(yaml)
+        train_cfg.TPU.COMPUTE_DTYPE = train_cfg.TPU.HEAD_DTYPE = "float32"
+        eval_cfg = load_config(yaml)
+        eval_cfg.TEST.SCORE_THRESH = 0.0
+        H, W = (64, 128) if tiny else BUCKET
+        batch = training_batch(H, W, B=2, n_gt=3)
+        one = make_mesh(device=dev)
+        zero_counters()
+        ref = train_steps(one, train_cfg, batch, tiny=tiny, steps=3)
+        seq = pred_eval_rank(one, eval_cfg, "data/coco", "minival2014",
+                             tiny=tiny, arrays=arrays)
+        add(read_launches())
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(train_and_eval_rank, 2, train_cfg, batch, 3, eval_cfg,
+                      "data/coco", "minival2014", tiny, arrays,
+                      backend="gloo", device=str(dev))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    for r in ranks:
+        add(launches_of(r["launches"]))
+    if not tiny:
+        for i, r in enumerate(ranks):
+            trained = launches_of(r["train_launches"])
+            served = {k: launches_of(r["launches"])[k] - trained[k]
+                      for k in COUNTERS}
+            idle = ([k for k in ("geom_bias", "geom_bias_bwd", "nms_keep_sorted",
+                                 "fused_bias_attention") if not trained[k]]
+                    + [k for k in ("geom_bias", "nms_keep_sorted",
+                                   "stem_conv1_bn_relu") if not served[k]])
+            if idle:
+                fail(f"{tag} rank {i} launched none of {idle}")
+    # (a) the step
+    digests = {r["train"]["digest"] for r in ranks}
+    dp = ranks[0]["train"]
+    m_dp, m_ref = dp["metrics"][0], ref["metrics"][0]
+    worst = max((abs(m_dp[k] - v) / max(abs(v), 1e-6), k)
+                for k, v in m_ref.items() if k.endswith("loss"))
+    agree = update_agreement(ref["init"], ref["params"], dp["params"])
+    norm_err = abs(agree["norm_new"] - agree["norm"]) / agree["norm"]
+    ok = (len(digests) == 1 and worst[0] <= 1e-3 and norm_err <= 1e-3
+          and agree["leaf_of_norm"] <= 1e-3 and agree["moved"] > 0)
+    ms_one = statistics.median(ref["step_s"][1:]) * 1e3
+    ms_dp = statistics.median(dp["step_s"][1:]) * 1e3
+    log(f"{tag} (a) train step, global batch 2 = 2 ranks x 1 (gloo on one "
+        f"card) vs one process x 2, f32: total_loss {m_dp['total_loss']:.6f} "
+        f"vs {m_ref['total_loss']:.6f}, worst loss {worst[1]} rel "
+        f"{worst[0]:.2e}; update norm {agree['norm_new']:.6e} vs "
+        f"{agree['norm']:.6e} rel {norm_err:.2e}, whole update rel "
+        f"{agree['global_rel']:.2e}, worst leaf {agree['leaf_of_norm']:.2e} of "
+        f"the norm, {agree['moved']} leaves moved; ranks bit-equal "
+        f"{len(digests) == 1} (tol 1e-3) {'OK' if ok else 'FAIL'}")
+    log(f"{tag} (a) ms/step (median of steps 2-3): one process, B=2: "
+        f"{ms_one:.3f}; data parallel, 2 ranks x B=1 on one card: {ms_dp:.3f} "
+        f"(rank 1: {statistics.median(ranks[1]['train']['step_s'][1:]) * 1e3:.3f});"
+        f" on {card}")
+    if not ok:
+        fail(f"{tag} the data-parallel step disagrees with one process's step")
+    # (b) pred_eval
+    want = seq["dets"]
+    n_det = sum(len(d) for d in want.values())
+    equal = all(list(r["eval"]["dets"]) == list(want) and all(
+        np.array_equal(r["eval"]["dets"][k], v) for k, v in want.items())
+        for r in ranks)
+    errs = [] if equal else [
+        f"image {k}: {e}" for r in ranks for k, v in want.items()
+        for e in match_dets(v, r["eval"]["dets"].get(k, np.zeros((0, 6))))]
+    st = [seq["stats"]] + [r["eval"]["stats"] for r in ranks]
+    per = [s["net_s"] / max(s["images"], 1) * 1e3 for s in st]
+    log(f"{tag} (b) pred_eval over 2 ranks vs sequential, {len(want)} images "
+        f"({route}), {n_det} detections: bit-equal {equal}"
+        + ("" if equal else f", top-{TOP_K} bands: {len(errs)} misses {errs[:3]}")
+        + f"; ms/image (net): sequential {per[0]:.3f}, data parallel rank 0 "
+        f"{per[1]:.3f}, rank 1 {per[2]:.3f} (both ranks on one card); "
+        f"spawn to join {spawn_s:.1f} s; on {card}")
+    if n_det == 0 or errs:
+        fail(f"{tag} data-parallel pred_eval disagrees with the sequential run")
+    return launches
+
+
+def run_reference(torch, dev, card: str = "", tiny: bool = False):
+    """Phase 15: the reference-weights path. (a) The flagship YAML's model
+    with init_params(seed=0), written as an mx.nd.save v2 file under the
+    reference's names and MXNet layouts (relation_tpu_torch/tools/
+    convert_reference_params.py::reference_arrays, 'arg:' / 'aux:'
+    prefixes); (b) converted by that tool (its main, as a user runs it):
+    nothing missing, nothing unused, the params file read back into a fresh
+    model bit-equal to the weights written; (c) ``python -m
+    relation_tpu_torch.experiments.test --roi-method auto`` on a seeded
+    mini COCO dataset (five images, two buckets), in a process of its own:
+    it must pick roi_method pool and the parity keys (FPN_TOPK exact,
+    GEOM_EMB_DTYPE float32, NMS_COMPACT_CLASSES 0, DCN_POOL_DTYPE float32);
+    (d) the same requests in this process, pred_eval with the kernels and
+    with the plain versions (roi_pool's among them), held to phase 4's
+    top-50 bands, the driver's detections against the kernel run's; the
+    parity mode's ms/image; (e) two clipped flagship train steps and one
+    unclipped pair with TPU.ROI_METHOD='pool' (run_training: the ROIPooling
+    forward and backward kernels once an image a step, kernel step against
+    plain step within 1e-3). ``tiny``: the tiny trunk on the CPU."""
+    import pickle
+    import tempfile
+
+    from relation_tpu_torch.config.defaults import load_config
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.checkpoint import (load_params,
+                                                    params_from_blob,
+                                                    read_params_blob)
+    from relation_tpu_torch.core.evaluator import pred_eval
+    from relation_tpu_torch.core.trainer import build_model
+    from relation_tpu_torch.data.coco import coco_dataset
+    from relation_tpu_torch.data.loader import TestLoader
+    from relation_tpu_torch.experiments.test import ROI_KEYS, apply_roi_method
+    from relation_tpu_torch.tools import convert_reference_params as conv
+    from relation_tpu_torch.tools.mini_coco import array_loader
+    tag = "[reference]"
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ref_")
+    cwd = os.getcwd()
+    os.chdir(tmp.name)
+    try:
+        arrays, route = mini_dataset(tiny, seed=15)
+        yaml = eval_yaml("flagship.yaml", tiny)
+        tiny_flag = ["--tiny"] if tiny else []
+        # (a) + (b)
+        cfg = load_config(yaml)
+        model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+        src = conv.save_mxnet_params("rcnn_coco-0008.params",
+                                     conv.reference_arrays(model), "v2")
+        t0 = time.perf_counter()
+        out = conv.main(["--src", src, "--cfg", yaml, "--out",
+                         "ref.params.msgpack", "--device", dev.type, *tiny_flag])
+        conv_s = time.perf_counter() - t0
+        fresh = build_model(cfg, tiny=tiny, device=dev)
+        fresh.load_state_dict(load_params(out["out"], fresh))
+        sd = model.state_dict()
+        diff = [k for k, v in fresh.state_dict().items()
+                if not torch.equal(v, sd[k])]
+        n_arrays = len(sd)
+        del model, fresh, out["model"]
+        log(f"{tag} (a-b) {n_arrays} arrays written as mx.nd.save v2 "
+            f"({os.path.getsize(src) / 2 ** 20:.1f} MiB), converted in "
+            f"{conv_s:.1f} s: {len(out['missing'])} missing, "
+            f"{len(out['unused'])} unused, {len(diff)} leaves differ after the "
+            f"round trip")
+        if out["missing"] or out["unused"] or diff:
+            fail(f"{tag} the converter's round trip is not exact: missing "
+                 f"{out['missing'][:3]}, unused {out['unused'][:3]}, differ "
+                 f"{diff[:3]}")
+        # (c) the test driver in a process of its own
+        if arrays is not None:
+            fail(f"{tag} needs PIL: experiments.test reads the dataset's PNG "
+                 "files")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                      if p]))
+        cmd = [sys.executable, "-m", "relation_tpu_torch.experiments.test",
+               "--cfg", yaml, "--ckpt", "ref.params.msgpack", "--roi-method",
+               "auto", "--thresh", "0", "--device", dev.type, *tiny_flag]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                              env=env)
+        driver_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{tag} experiments.test failed ({proc.returncode}): "
+                 f"{proc.stderr[-2000:]}")
+        picked = [json.loads(line.split("ROI settings: ", 1)[1])
+                  for line in proc.stdout.splitlines()
+                  if line.startswith("ROI settings: ")]
+        want_keys = {"ROI_METHOD": "pool", "FPN_TOPK": "exact",
+                     "GEOM_EMB_DTYPE": "float32", "NMS_COMPACT_CLASSES": 0,
+                     "DCN_POOL_DTYPE": "float32"}
+        log(f"{tag} (c) python -m relation_tpu_torch.experiments.test "
+            f"--roi-method auto: {driver_s:.1f} s, picked {picked}")
+        if picked != [want_keys]:
+            fail(f"{tag} the test driver's parity mode set {picked}, not "
+                 f"{want_keys}")
+        test_set = cfg.dataset.test_image_set
+        with open(os.path.join(cfg.output_path or "output", "flagship", test_set,
+                               "detections.pkl"), "rb") as f:
+            driver_dets = pickle.load(f)
+        # (d) in this process, kernels and plain versions
+        pcfg = load_config(yaml)
+        blob, meta = read_params_blob("ref.params.msgpack")
+        apply_roi_method(pcfg, "auto", meta)
+        pcfg.TEST.SCORE_THRESH = 0.0
+        if {k: pcfg.TPU.get(k) for k in ROI_KEYS} != want_keys:
+            fail(f"{tag} apply_roi_method set "
+                 f"{ {k: pcfg.TPU.get(k) for k in ROI_KEYS} }")
+        model = build_model(pcfg, tiny=tiny, device=dev)
+        model.load_state_dict(params_from_blob(blob, model))
+        dataset = coco_dataset(pcfg.dataset.dataset_path, test_set)
+        roidb = dataset.roidb()
+
+        def loader():
+            return (None if arrays is None else
+                    TestLoader(roidb, pcfg, image_loader=array_loader(arrays)))
+        stats = {}
+        zero_counters()
+        _, kdets = pred_eval(model, pcfg, dataset, roidb, loader=loader(),
+                             stats=stats)
+        served = read_launches()
+        add(served)
+        with plain_kernels():
+            zero_counters()
+            pstats = {}
+            _, pdets = pred_eval(model, pcfg, dataset, roidb, loader=loader(),
+                                 stats=pstats)
+            stray = {k: read_counter(k) for k in COUNTERS if read_counter(k)}
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    if stray:
+        fail(f"{tag} the plain pred_eval launched kernels: {stray}")
+    # the learned-NMS attention: the skip kernel when at most half the
+    # classes pass the class threshold, else the geometric bias + the bias
+    # attention (NMS_COMPACT_CLASSES 0 changes only the XLA branch's form)
+    idle = [k for k in ("roi_pool", "nms_keep_sorted", "geom_bias",
+                        "stem_conv1_bn_relu") if not served[k]]
+    if not (served["fused_nms_relation_attention_skip"]
+            or served["fused_bias_attention"]):
+        idle.append("the learned-NMS attention")
+    if not tiny and idle:
+        fail(f"{tag} the parity-mode pred_eval launched none of {idle}: "
+             f"{served}")
+    errs = [f"image {k}: {e}" for k, v in pdets.items()
+            for e in match_dets(v, kdets[k])]
+    same_driver = list(driver_dets) == list(kdets) and all(
+        np.array_equal(driver_dets[k], v) for k, v in kdets.items())
+    errs += [] if same_driver else [
+        f"driver image {k}: {e}" for k, v in kdets.items()
+        for e in match_dets(v, driver_dets[k])]
+    n_det = sum(len(d) for d in kdets.values())
+    per = stats["net_s"] / max(stats["images"], 1) * 1e3
+    plain_per = pstats["net_s"] / max(pstats["images"], 1) * 1e3
+    log(f"{tag} (d) parity-mode pred_eval ({route}, {len(kdets)} images, {n_det} "
+        f"detections): kernel path vs plain path in the top-{TOP_K} bands: "
+        f"{len(errs)} misses {errs[:3]}; the driver's detections bit-equal to "
+        f"this process's: {same_driver}; ms/image (net) {per:.3f} (plain path "
+        f"{plain_per:.3f}); roi_pool launches {served['roi_pool']} (by shape: "
+        f"{ {k: v for k, v in served.items() if k.startswith('roi_pool@')} }); "
+        f"on {card}")
+    if errs or n_det == 0:
+        fail(f"{tag} the parity-mode detections leave the bands")
+    # (e) the train step on ROIPooling
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    counts, ms, peak = run_training(torch, dev, card, tiny=tiny,
+                                    dense_steps=2, fused_steps=0,
+                                    roi_method="pool")
+    add(counts)
+    log(f"{tag} (e) flagship train step with TPU.ROI_METHOD='pool', B=2: "
+        f"{ms:.3f} ms/step, peak memory {peak:.3f} GiB on {card}")
+    return launches, per
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk", "fpn",
-                                        "workflow", "eval"],
+                                        "workflow", "eval", "dp", "reference"],
                     default="all")
     args = ap.parse_args()
     try:
@@ -2943,6 +3444,9 @@ def main() -> None:
                                       pallas + "nms_attention.py:269",
                                       check_bias_attention_skip,
                                       np.random.RandomState(9)),
+        # no Pallas counterpart: the JAX function is plain jnp
+        "roi_pool": (csrc + "roi_pool.cu", "relation_tpu/ops/roi_pool.py:246",
+                     check_roi_pool, np.random.RandomState(10)),
     }
     if args.phase == "dcn":
         checks = {"dconv_col2im": checks["dconv_col2im"]}
@@ -2962,8 +3466,14 @@ def main() -> None:
         checks = {k: checks[k] for k in (
             "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
             "fused_bias_attention", "fused_nms_relation_attention_skip")}
+    if args.phase in ("dp", "reference"):
+        checks = {k: checks[k] for k in (
+            "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
+            "fused_bias_attention", "fused_nms_relation_attention_skip",
+            "roi_pool")}
     nms_ran = (nms_kernels_a_call(torch, dev)
-               if args.phase in ("all", "kernels", "dcn", "workflow", "eval")
+               if args.phase in ("all", "kernels", "dcn", "workflow", "eval",
+                                 "dp", "reference")
                else {})
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
     if args.phase in ("all", "kernels", "dcn"):
@@ -3005,6 +3515,22 @@ def main() -> None:
         add(run_eval(torch, dev, card))
         log(f"[done] eval phase only: launches {launches}; no device line")
         return
+
+    def dp_phase():
+        add(run_dp(torch, dev, card))
+        torch.cuda.empty_cache()
+
+    def reference_phase():
+        counts, ms_image = run_reference(torch, dev, card)
+        add(counts)
+        log(f"[e2e] parity-mode (roi_method pool) pred_eval ms/image "
+            f"{ms_image:.3f} on {card}")
+        torch.cuda.empty_cache()
+    if args.phase in ("dp", "reference"):
+        (dp_phase if args.phase == "dp" else reference_phase)()
+        log(f"[done] {args.phase} phase only: launches {launches}; no device "
+            "line")
+        return
     if args.phase == "all":
         flagship_launches, ms_image = run_flagship(torch, dev)
         add(flagship_launches)
@@ -3036,6 +3562,9 @@ def main() -> None:
     add(run_workflow(torch, dev, card))
     torch.cuda.empty_cache()
     add(run_eval(torch, dev, card))
+    torch.cuda.empty_cache()
+    dp_phase()
+    reference_phase()
     for name in SHAPES:
         split = {k.split("@", 1)[1]: v for k, v in launches.items()
                  if k.startswith(name + "@")}

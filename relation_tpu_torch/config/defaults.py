@@ -153,10 +153,11 @@ def default_config() -> AttrDict:
     # ---- extensions of the JAX package (not present in the reference) ----
     # Kept key for key so that configs and YAMLs written for relation_tpu load
     # here unchanged. The port reads COMPUTE_DTYPE and HEAD_DTYPE (dtype
-    # policy, core/trainer.py::build_model), ROI_METHOD, DCN_POOL_DTYPE,
-    # FUSE_RES4 (the fused res4 stack kernel at inference, entry.py),
-    # GRAD_CLIP, the learned-NMS attention's branch (LNMS_ATTN for C4
-    # models, FPN_ALLOW_PALLAS for FPN models, NMS_COMPACT_CLASSES for both)
+    # policy, core/trainer.py::build_model), ROI_METHOD ("align" | "pool"),
+    # DCN_POOL_DTYPE, FUSE_RES4 (the fused res4 stack kernel at inference,
+    # entry.py), GRAD_CLIP, LNMS_REMAT, the learned-NMS attention's branch
+    # (LNMS_ATTN for C4 models, FPN_ALLOW_PALLAS for FPN models,
+    # NMS_COMPACT_CLASSES for both)
     # and FPN_SPLIT_PREDICT (core/predictor.py::build_predict_fn); the
     # others select TPU/XLA code paths of relation_tpu and are accepted and
     # ignored: GEOM_EMB_DTYPE (the kernels never materialise the sinusoid
@@ -175,7 +176,7 @@ def default_config() -> AttrDict:
     TPU.COMPILE_CACHE_DIR = ""
     TPU.EVAL_PIPELINE_DEPTH = 8
     TPU.EVAL_LOG_EVERY = 200
-    TPU.ROI_METHOD = "align"           # only "align" is ported so far
+    TPU.ROI_METHOD = "align"           # "align" | "pool" (exact ROIPooling)
     TPU.DCN_POOL_DTYPE = "bfloat16"
     TPU.LNMS_ATTN = "pallas"
     TPU.FPN_TOPK = "approx"

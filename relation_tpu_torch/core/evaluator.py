@@ -13,8 +13,12 @@ Differences from the JAX module, which the PyTorch route brings:
 - the counterpart of ``copy_to_host_async`` is a non-blocking copy into
   pinned host memory with a CUDA event, drained behind the window of
   TPU.EVAL_PIPELINE_DEPTH images in flight;
-- a ``mesh`` of more than one device (data-parallel inference) is not
-  ported: it raises NotImplementedError.
+- a ``mesh`` (parallel/mesh.py) of several ranks is a process a rank: the
+  images are grouped per bucket into groups of ``world`` from the roidb's
+  sizes, every rank decodes and predicts only the group's image of its
+  rank (core/predictor.py::make_predict_fn_sharded); the detections are
+  gathered to every rank, and rank 0 alone writes the cache and the
+  results JSON.
 """
 
 from __future__ import annotations
@@ -29,9 +33,12 @@ import torch
 
 from relation_tpu_torch.core.predictor import (build_predict_fn,
                                                make_predict_fn_rcnn,
+                                               make_predict_fn_sharded,
                                                prepare_res4_folded)
 from relation_tpu_torch.data.eval import CocoEvaluator, format_coco_summary
+from relation_tpu_torch.data.image import bucket_of
 from relation_tpu_torch.data.loader import ProposalTestLoader, TestLoader
+from relation_tpu_torch.parallel.mesh import is_rank0
 from relation_tpu_torch.utils.native import have_native
 
 
@@ -90,14 +97,19 @@ def pred_eval(model, cfg, dataset, roidb, logger=None,
     With ``proposal_file`` the reference's TEST.HAS_RPN=false path runs:
     the head on cached proposals (function/test_rcnn.py:40-74) through
     ``ProposalTestLoader`` and ``make_predict_fn_rcnn``. ``loader`` replaces
-    the loader built over ``roidb``. A dict ``stats`` is filled with the
+    the loader built over ``roidb`` (with a mesh, a TestLoader: each rank
+    iterates ``loader.subset`` of its images). A dict ``stats`` is filled with the
     images, the seconds of data, net, fetch and post, summarize's seconds
-    and the matching route (``native``: utils/native.py::have_native)."""
+    and the matching route (``native``: utils/native.py::have_native).
+
+    ``mesh`` (parallel/mesh.py::make_mesh) of several ranks: data-parallel
+    inference, one image of each group of ``world`` same-bucket images a
+    rank (a last partial group padded by repeating its last image, the pads
+    dropped), the detections of every image on every rank in the loader's
+    order, equal to the sequential run's; the cached-proposal route runs
+    whole on every rank, as the JAX package runs it unsharded."""
     log = logger.info if logger else print
-    if mesh is not None and np.asarray(getattr(mesh, "devices", mesh)).size > 1:
-        raise NotImplementedError(
-            "data-parallel inference over a mesh of more than one device is "
-            "not ported yet; pass mesh=None")
+    sharded = mesh is not None and mesh.distributed and not proposal_file
     timing = {"images": 0, "data_s": 0.0, "net_s": 0.0, "fetch_s": 0.0,
               "post_s": 0.0}
     if cache_path and os.path.exists(cache_path) and not ignore_cache:
@@ -105,14 +117,18 @@ def pred_eval(model, cfg, dataset, roidb, logger=None,
             dets_per_image = pickle.load(f)
         log(f"loaded detections cache: {cache_path}")
     else:
-        dets_per_image = _run_loader(model, cfg, roidb, loader, proposal_file,
-                                     timing, logger)
-        if cache_path:
+        if sharded:
+            dets_per_image = _run_loader_sharded(model, cfg, roidb, loader,
+                                                 timing, logger, mesh)
+        else:
+            dets_per_image = _run_loader(model, cfg, roidb, loader,
+                                         proposal_file, timing, logger)
+        if cache_path and is_rank0(mesh):
             os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
             with open(cache_path, "wb") as f:
                 pickle.dump(dets_per_image, f)
 
-    if cache_path:
+    if cache_path and is_rank0(mesh):
         # detections_<set>_results.json beside the cache (reference
         # lib/dataset/coco.py:185-225 _write_coco_results)
         res_dir = os.path.join(os.path.dirname(cache_path) or ".", "results")
@@ -221,6 +237,66 @@ def _run_loader(model, cfg, roidb, loader, proposal_file, timing,
     if n:
         log(f"{n} images: " + _split(timing, n))
     return dets_per_image
+
+
+def shard_groups(roidb, cfg, world: int) -> list:
+    """The groups of the data-parallel run, from the roidb's sizes alone
+    (data/image.py::bucket_of, no decode): per bucket, runs of ``world``
+    images in the roidb's order, each group done when it fills, the partial
+    groups last in bucket order. Returns [[roidb index, ...], ...]."""
+    target, max_size = cfg.SCALES[0]
+    buckets = [tuple(b) for b in cfg.TPU.IMAGE_BUCKETS]
+    groups, pending = [], {}
+    for i, e in enumerate(roidb):
+        key = bucket_of(e["height"], e["width"], target, max_size, buckets)
+        pending.setdefault(key, []).append(i)
+        if len(pending[key]) == world:
+            groups.append(pending.pop(key))
+    return groups + [pending[k] for k in sorted(pending)]
+
+
+def _run_loader_sharded(model, cfg, roidb, loader, timing, logger,
+                        mesh) -> dict:
+    """Data-parallel inference (the JAX package's sharded pred_eval,
+    relation_tpu/core/evaluator.py:161-258): images grouped per bucket
+    (``shard_groups``), a group of ``world`` predicted at once, one image a
+    rank (a partial group's missing ranks repeat its last image, whose
+    copies are dropped), the detections gathered to every rank. Each rank
+    decodes only its images. Returns {image_id: dets} in the roidb's order;
+    fills ``timing`` (the gather counts as net; ``images`` counts the
+    test set)."""
+    log = logger.info if logger else print
+    loader = loader or TestLoader(roidb, cfg)
+    entries = loader.roidb
+    groups = shard_groups(entries, cfg, mesh.world)
+    mine = loader.subset([g[min(mesh.rank, len(g) - 1)] for g in groups])
+    predict = make_predict_fn_sharded(model, cfg, mesh)
+    res4_folded = prepare_res4_folded(
+        model, enabled=bool(cfg.TPU.get("FUSE_RES4", False)))
+    log_every = max(int(cfg.TPU.get("EVAL_LOG_EVERY", 200)) // mesh.world, 1)
+    dets_per_image = {}
+
+    n = 0
+    t = time.perf_counter()
+    for n, (group, item) in enumerate(zip(groups, mine), 1):
+        _, img, im_info = item[:3]
+        timing["data_s"] += time.perf_counter() - t
+        t = time.perf_counter()
+        dets = predict(img, np.asarray(im_info, np.float32), res4_folded)
+        for k, i in enumerate(group):
+            e = entries[i]
+            dets_per_image[e.get("image_id", e["image"])] = \
+                dets[k][dets[k][:, 0] >= 0]
+        timing["net_s"] += time.perf_counter() - t
+        if n % log_every == 0:
+            log(f"{n}/{len(groups)} groups " + _split(timing, n))
+        t = time.perf_counter()
+    timing["images"] = len(entries)
+    if entries:
+        log(f"{len(entries)} images in {n} groups over {mesh.world} ranks: "
+            + _split(timing, n) + " a group")
+    return {k: dets_per_image[k]
+            for k in (e.get("image_id", e["image"]) for e in entries)}
 
 
 def _split(timing: dict, n: int) -> str:

@@ -7,14 +7,16 @@ among them).
 
 Detections come back as a fixed-size [max_det, 6] tensor (cls_id, score,
 x1, y1, x2, y2 in original-image coordinates) with -1 class padding.
-make_predict_fn_rcnn predicts from cached proposals (TEST.HAS_RPN false).
-The sharded variant comes in a later slice of the port.
+make_predict_fn_rcnn predicts from cached proposals (TEST.HAS_RPN false);
+make_predict_fn_sharded predicts a group of images over a data-parallel
+process group (parallel/mesh.py), one image a rank.
 """
 
 from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
 
 from relation_tpu_torch.models.backbone import fold_res4_params
@@ -281,6 +283,30 @@ def build_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg):
             and isinstance(model, RelationRCNNFPN) and bool(cfg.TEST.LEARN_NMS)):
         return make_predict_fn_split(model, cfg)
     return make_predict_fn(model, cfg)
+
+
+def make_predict_fn_sharded(model: RelationRCNN | RelationRCNNFPN, cfg, mesh):
+    """Data-parallel inference over a process group (parallel/mesh.py), the
+    counterpart of the JAX package's make_predict_fn_sharded (shard_map of
+    the single-image predict over the mesh's data axis; the reference's
+    multi-GPU Predictor, one executor a context, core/tester.py:27-40):
+    ``world`` images a call, one a rank, each rank running the unchanged
+    single-image predict function (``build_predict_fn``). No collective
+    touches the model: the detections are gathered to every rank as CPU
+    arrays (``gather_objects``), in rank order.
+
+    Returns fn(image, im_info, res4_folded=None) -> dets [world, max_det, 6]
+    numpy, the same on every rank: each rank passes its own image of the
+    group (only that one is decoded) and gets row r from rank r. One
+    function serves every bucket (the JAX package compiles one a
+    bucket)."""
+    from relation_tpu_torch.parallel.mesh import gather_objects
+    predict = build_predict_fn(model, cfg)
+
+    def fn(image, im_info, res4_folded=None):
+        dets = predict(image, im_info, res4_folded)["dets"]
+        return np.stack(gather_objects(mesh, dets.cpu().numpy()))
+    return fn
 
 
 def make_predict_fn_rcnn(model: RelationRCNN | RelationRCNNFPN, cfg):

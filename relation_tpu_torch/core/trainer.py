@@ -15,8 +15,18 @@ unless the caller asks for the CPU. Differences that PyTorch brings:
   sees trainable gradients only;
 - random priorities come from a ``torch.Generator`` used in sequence, or are
   handed to the step (``priorities=``), as the parity tests do;
-- the ``stop_after`` benchmarking cuts are not ported, and TPU.LNMS_REMAT is
-  accepted and ignored (PyTorch keeps the activations).
+- data parallelism (``make_train_step(..., mesh=)``, parallel/mesh.py) is
+  one process a rank: each rank's loss is the mean over its images, and
+  the gradients of the trainable leaves and the metrics are averaged over
+  the ranks before the clip and the update, so every rank applies the same
+  update (the reference's kvstore 'device' sum with rescale_grad, which
+  the JAX step gets from XLA's all-reduce). Every rank draws the global
+  batch's priorities from its copy of the generator, in the order a
+  one-process step draws them, and keeps its images' share, so the
+  generators stay in step;
+- TPU.LNMS_REMAT recomputes the learned-NMS branch's forward in the
+  backward (``torch.utils.checkpoint``), as the JAX step's
+  ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from relation_tpu_torch.models.backbone import Conv2d
 from relation_tpu_torch.models.detector import RelationRCNN
@@ -36,7 +47,8 @@ from relation_tpu_torch.models.losses import (accuracy_ignore, learn_nms_losses,
                                               rpn_losses)
 from relation_tpu_torch.models.rpn import generate_proposals
 from relation_tpu_torch.models.targets import (anchor_targets, nms_multi_target,
-                                               ohem_select, sample_rois)
+                                               ohem_select, sample_rois,
+                                               uniform_priorities)
 from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
 from relation_tpu_torch.utils.lr import warmup_multi_factor_schedule
 
@@ -85,7 +97,11 @@ def build_model(cfg, tiny: bool = False,
     head, pooled in TPU.DCN_POOL_DTYPE) and the FPN symbols
     (RelationRCNNFPN; TPU.FPN_ALLOW_PALLAS True or "lnms" gives its
     learned-NMS head the C4 attention branch, False the two-stage one, and
-    TPU.NMS_COMPACT_CLASSES caps the class skipping of the latter)."""
+    TPU.NMS_COMPACT_CLASSES caps the class skipping of the latter).
+    TPU.ROI_METHOD pools the ROIs of the C4 and FPN heads: "align"
+    (ROIAlign, the default) or "pool" (exact MXNet ROIPooling, the parity
+    mode of converted reference weights); the DCN head pools with its
+    deformable PSROI pool either way."""
     sym = cfg.symbol
     threshes = np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float, sep=",")
     precomputed = bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED)
@@ -110,7 +126,8 @@ def build_model(cfg, tiny: bool = False,
         backbone="tiny" if tiny else "resnet101",
         head_dim=64 if tiny else 1024,
         conv_dtype=conv_dtype, head_dtype=head_dtype,
-        freeze_through=_freeze_through(tuple(cfg.network.FIXED_PARAMS)))
+        freeze_through=_freeze_through(tuple(cfg.network.FIXED_PARAMS)),
+        roi_method=str(cfg.TPU.get("ROI_METHOD", "align")))
     with torch.device(device):
         if "fpn" in sym:
             ap = cfg.TPU.get("FPN_ALLOW_PALLAS", False)
@@ -129,9 +146,6 @@ def build_model(cfg, tiny: bool = False,
                 lnms_allow_pallas=str(cfg.TPU.get("LNMS_ATTN", "pallas")) != "xla",
                 compact_classes=int(cfg.TPU.get("NMS_COMPACT_CLASSES", 32)),
                 **common)
-    if str(cfg.TPU.get("ROI_METHOD", "align")) != "align":
-        raise NotImplementedError("TPU.ROI_METHOD='pool' (exact ROIPooling) "
-                                  "is not ported yet")
     # f32 master weights, cast to the compute dtype at the call, as the flax
     # convs do (param_dtype=float32): an SGD update at lr 5e-4 is below the
     # resolution of a bf16 weight
@@ -266,9 +280,14 @@ def refreeze_state(state: TrainState, cfg, fixed_prefixes,
     return dataclasses.replace(state, trace=tx.init(state.model), tx=tx, count=0)
 
 
+STOP_AFTER = ("rpn", "anchor_targets", "proposals", "sample", "feat", "pool",
+              "head", "lnms_score", "lnms_target")
+
+
 def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                     stop_after: str = "", fixed_prefixes=None,
-                    no_grad: bool = False, device="cuda") -> Callable:
+                    no_grad: bool = False, device="cuda",
+                    mesh=None) -> Callable:
     """Build the per-batch train step of a C4 symbol (plain or DCN) or of an
     FPN symbol, on ``device`` (the model must live there; asking for CUDA
     where there is none raises). The symbol and the model must agree: an
@@ -289,21 +308,33 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     one exact top-k, one NMS) on the RPN outputs without gradient; the
     pooled head on the image's slice of the batched pyramid.
 
-    ``priorities``: one dict per image, ``{"anchor": (fg [K], bg [K]),
-    "sample": (fg, bg, pad, gap) each [R + G]}``, the uniform vectors that
-    rank the random subsampling (K: the anchors, of every level for an FPN;
-    "sample" only when TRAIN.BATCH_ROIS >= 0); None draws them from
-    ``state.generator``.
+    ``priorities``: one dict per image of ``batch``, ``{"anchor": (fg [K],
+    bg [K]), "sample": (fg, bg, pad, gap) each [R + G]}``, the uniform
+    vectors that rank the random subsampling (K: the anchors, of every
+    level for an FPN; "sample" only when TRAIN.BATCH_ROIS >= 0); None draws
+    them from ``state.generator``.
+
+    ``mesh`` (parallel/mesh.py::make_mesh; None or one rank: no
+    collectives): ``batch`` is this rank's share of a global batch of
+    ``world`` equal shares (shard_batch), the state is the same on every
+    rank (``replicated``), and the step averages the trainable leaves'
+    gradients and the metrics over the ranks before the update. Without
+    ``priorities`` every rank draws the whole global batch's in the order of
+    a one-process step and keeps its share.
 
     ``fixed_prefixes`` overrides cfg.network.FIXED_PARAMS for the set of
     parameters that take no gradient. ``no_grad`` gives the forward-only step
-    (metrics, parameters untouched). ``stop_after`` (the JAX package's
-    benchmarking cuts) is not ported: anything but "" raises.
+    (metrics, parameters untouched). ``stop_after`` is one of the JAX
+    package's benchmarking cuts (STOP_AFTER): the image's graph stops after
+    that stage and the step trains on the partial loss, with the JAX cut's
+    metrics ('rpn' to 'pool': total_loss only; 'head': the head's losses
+    without the learned-NMS branch; 'lnms_score' / 'lnms_target': the
+    branch's four metrics equal to its 1e-30 term); "" is the full step.
     """
-    if stop_after:
-        raise NotImplementedError(
-            f"stop_after={stop_after!r}: the benchmarking cuts of the JAX "
-            "train step are not ported")
+    if stop_after and stop_after not in STOP_AFTER:
+        raise ValueError(f"stop_after={stop_after!r}: one of {STOP_AFTER} "
+                         "(the JAX step's lnms_embed / lnms_attn probes are "
+                         "not ported)")
     device = step_device(model, cfg, device, "make_train_step")
     is_fpn = isinstance(model, RelationRCNNFPN)
     stride = int(cfg.network.RPN_FEAT_STRIDE)
@@ -325,7 +356,8 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     step_mask = trainable_mask(model, fixed_prefixes)
     rpn_rows = rpn_rows_fn(model, cfg, device)
     rpn_loss = rpn_loss_fn(cfg)
-    head_losses = head_losses_fn(model, cfg)
+    head_losses = head_losses_fn(model, cfg, stop_after=stop_after)
+    cut = STOP_AFTER.index(stop_after) if stop_after else len(STOP_AFTER)
 
     def proposals(rpn, im_info):
         """The image's proposals [post_N, 4] (called without gradient)."""
@@ -338,6 +370,23 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                                   rpn_bbox, base_anchors_t, im_info, stride,
                                   *top)[0]
 
+    def draw(rpn, n_images: int, n_gt: int, generator) -> list:
+        """The priorities of ``n_images`` images in the order a step draws
+        them image after image: the anchors' (fg, bg) unless the step stops
+        at the RPN, then the sampler's four vectors in sampled mode."""
+        out = []
+        n_anchors = rpn_rows(rpn)[0].shape[0]
+        for _ in range(n_images):
+            prio = {}
+            if cut > STOP_AFTER.index("rpn"):
+                prio["anchor"] = uniform_priorities(generator, 2, n_anchors,
+                                                    device)
+            if cut > STOP_AFTER.index("proposals") and batch_rois >= 0:
+                prio["sample"] = uniform_priorities(generator, 4,
+                                                    nongt_dim + n_gt, device)
+            out.append(prio)
+        return out
+
     def per_image(feat, rpn, ins, generator, prio):
         """Everything after the batched conv trunk, for one image. C4: feat
         [h, w, 256], rpn (rpn_cls [h, w, A, 2], rpn_bbox [h, w, A, 4]); FPN:
@@ -345,11 +394,25 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
         rpn_bbox [h, w, 4A])}."""
         im_info, gt_boxes, gt_valid = ins["im_info"], ins["gt_boxes"], ins["gt_valid"]
         anchors, rpn_cls_flat, rpn_bbox_flat = rpn_rows(rpn)
+        if stop_after == "rpn":
+            # gradients still flow through the whole trunk and the RPN
+            tot = (torch.mean(torch.square(rpn_cls_flat.float()))
+                   + torch.mean(torch.square(rpn_bbox_flat.float())))
+            return tot, {"total_loss": tot}
         rpn_cls_loss, rpn_bbox_loss, rpn_acc = rpn_loss(
             anchors, rpn_cls_flat, rpn_bbox_flat, im_info, gt_boxes, gt_valid,
             generator, None if prio is None else prio["anchor"])
+        total = rpn_cls_loss + rpn_bbox_loss
+        if stop_after == "anchor_targets":
+            return total, {"total_loss": total}
         with torch.no_grad():
             rois = proposals(rpn, im_info)
+        if stop_after == "proposals":
+            # the proposals carry no gradient; the 1e-30 term keeps them in
+            # the loss, as in the JAX cut
+            total = total + 1e-30 * torch.sum(rois)
+            return total, {"total_loss": total}
+        with torch.no_grad():
             tgt = sample_rois(
                 rois, torch.ones(rois.shape[0], dtype=torch.bool, device=device),
                 gt_boxes, gt_valid, generator,
@@ -363,9 +426,22 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                 bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
                 bbox_weights=tuple(np.asarray(cfg.TRAIN.BBOX_WEIGHTS).tolist()),
                 priorities=None if prio is None else prio.get("sample"))
+        if stop_after == "sample":
+            total = total + 1e-30 * (torch.sum(tgt["rois"])
+                                     + torch.sum(tgt["bbox_target"])
+                                     + torch.sum(tgt["label"].float()))
+            return total, {"total_loss": total}
+        if stop_after == "feat":
+            # the head's feature map without pooling (every level of an FPN)
+            levels = feat.values() if is_fpn else (feat,)
+            total = total + 1e-30 * sum(torch.sum(f.float()) for f in levels)
+            return total, {"total_loss": total}
+        if stop_after == "pool":
+            flat = model.head(feat, tgt["rois"], nongt_dim, pool_only=True)
+            total = total + 1e-30 * torch.sum(flat)
+            return total, {"total_loss": total}
         parts, metrics = head_losses(feat, tgt, nongt_dim, im_info, gt_boxes,
                                      gt_valid)
-        total = rpn_cls_loss + rpn_bbox_loss
         for part in parts:
             total = total + part
         metrics.update({"rpn_cls_loss": rpn_cls_loss,
@@ -376,7 +452,8 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     def train_step(state: TrainState, batch, priorities=None):
         return run_step(model, state, batch, priorities, per_image,
                         step_mask=step_mask, no_grad=no_grad, device=device,
-                        pixel_means=cfg.network.PIXEL_MEANS)
+                        pixel_means=cfg.network.PIXEL_MEANS, mesh=mesh,
+                        draw=draw)
 
     return train_step
 
@@ -459,20 +536,43 @@ def rpn_loss_fn(cfg) -> Callable:
     return loss
 
 
-def head_losses_fn(model, cfg) -> Callable:
+def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     """losses(feat, tgt, nongt_dim, im_info, gt_boxes, gt_valid) -> (parts,
     metrics): everything after ``sample_rois`` for one image, the head (its
     relation modules over the first ``nongt_dim`` ROIs as keys), OHEM, the
     RCNN losses and, with TRAIN.LEARN_NMS, the learned-NMS branch at class
-    threshold 0 on the first ``nongt_dim`` ROIs. ``parts`` are the losses to
-    add to the total, in the order the JAX package adds them."""
+    threshold 0 on the first ``nongt_dim`` ROIs (recomputed in the backward
+    under TPU.LNMS_REMAT). ``parts`` are the losses to add to the total, in
+    the order the JAX package adds them. ``stop_after`` 'head' leaves the
+    branch out; 'lnms_score' and 'lnms_target' cut it (make_train_step)."""
     threshes = tuple(np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float,
                                    sep=","))
     ohem = bool(cfg.TRAIN.ENABLE_OHEM)
-    learn_nms = bool(cfg.TRAIN.LEARN_NMS)
+    learn_nms = bool(cfg.TRAIN.LEARN_NMS) and stop_after != "head"
+    remat = bool(cfg.TPU.get("LNMS_REMAT", False))
     batch_rois = int(cfg.TRAIN.BATCH_ROIS)
     bbox_norm_denom = float(cfg.TRAIN.BATCH_ROIS_OHEM if ohem
                             else (300 if batch_rois < 0 else batch_rois))
+
+    def lnms_branch(cls_score, bbox_pred, rois, fc2, im_info, gt_boxes,
+                    gt_valid):
+        """(total, pos loss, neg loss, pos accuracy, neg accuracy)."""
+        ln = model.learn_nms(cls_score, bbox_pred, rois, fc2, im_info)
+        if stop_after == "lnms_score":
+            t = 1e-30 * (torch.sum(ln["nms_multi_score"])
+                         + torch.sum(ln["sorted_bbox"]))
+            return t, t, t, t, t
+        nt = nms_multi_target(ln["sorted_bbox"], gt_boxes, gt_valid,
+                              ln["sorted_score"].detach(), threshes)
+        if stop_after == "lnms_target":
+            t = 1e-30 * (torch.sum(ln["nms_multi_score"])
+                         + torch.sum(nt.float()))
+            return t, t, t, t, t
+        nms_total, pos_l, neg_l = learn_nms_losses(
+            ln["nms_multi_score"], nt, float(cfg.TRAIN.nms_loss_scale),
+            float(cfg.TRAIN.nms_pos_scale))
+        acc_pos, acc_neg = nms_accuracy(ln["nms_multi_score"], nt)
+        return nms_total, pos_l, neg_l, acc_pos, acc_neg
 
     def losses(feat, tgt, nongt_dim, im_info, gt_boxes, gt_valid):
         cls_score, bbox_pred, fc2 = model.head(feat, tgt["rois"], nongt_dim)
@@ -489,15 +589,15 @@ def head_losses_fn(model, cfg) -> Callable:
                    "rcnn_bbox_loss": rcnn_bbox_loss,
                    "rcnn_acc": accuracy_ignore(cls_score, rlabel)}
         if learn_nms:
-            ln = model.learn_nms(cls_score[:nongt_dim], bbox_pred[:nongt_dim],
-                                 tgt["rois"][:nongt_dim], fc2[:nongt_dim],
-                                 im_info)
-            nt = nms_multi_target(ln["sorted_bbox"], gt_boxes, gt_valid,
-                                  ln["sorted_score"].detach(), threshes)
-            nms_total, pos_l, neg_l = learn_nms_losses(
-                ln["nms_multi_score"], nt, float(cfg.TRAIN.nms_loss_scale),
-                float(cfg.TRAIN.nms_pos_scale))
-            acc_pos, acc_neg = nms_accuracy(ln["nms_multi_score"], nt)
+            args = (cls_score[:nongt_dim], bbox_pred[:nongt_dim],
+                    tgt["rois"][:nongt_dim], fc2[:nongt_dim], im_info,
+                    gt_boxes, gt_valid)
+            if remat and torch.is_grad_enabled():
+                out = torch.utils.checkpoint.checkpoint(
+                    lnms_branch, *args, use_reentrant=False)
+            else:
+                out = lnms_branch(*args)
+            nms_total, pos_l, neg_l, acc_pos, acc_neg = out
             parts.append(nms_total)
             metrics.update({"nms_pos_loss": pos_l, "nms_neg_loss": neg_l,
                             "nms_acc_pos": acc_pos, "nms_acc_neg": acc_neg})
@@ -506,16 +606,27 @@ def head_losses_fn(model, cfg) -> Callable:
 
 
 def run_step(model, state: TrainState, batch, priorities, per_image, *,
-             step_mask: dict, no_grad: bool, device, pixel_means):
+             step_mask: dict, no_grad: bool, device, pixel_means, mesh=None,
+             draw=None):
     """One step over a batch: the batch to ``device`` (uint8 images
     mean-subtracted there), the conv trunk and RPN batched, ``per_image(feat,
     rpn, inputs, generator, prio) -> (total, metrics)`` for each image
     (``inputs``: its slice of every batch entry but the image), the mean
     loss's gradient with only the ``step_mask`` leaves requiring one, and
-    the optimizer's update in place. Returns (state, batch-mean metrics)."""
+    the optimizer's update in place. Returns (state, batch-mean metrics).
+
+    With a ``mesh`` of several ranks, the gradients of the ``step_mask``
+    leaves (zeros where a leaf got none) and the metrics are averaged over
+    the ranks before the update, and ``draw(rpn, n_images, n_gt,
+    generator)`` gives the global batch's priorities when the caller gave
+    none; this rank keeps its share."""
     from relation_tpu_torch.core.predictor import _image_from_u8
+    from relation_tpu_torch.parallel.mesh import all_reduce_mean
     if state.model is not model:
         raise ValueError("train_step: the state belongs to another model")
+    dp = mesh is not None and mesh.distributed
+    if dp and draw is None:
+        raise ValueError("this step has no data-parallel form")
     image = torch.as_tensor(batch["image"], device=device)
     ins = {}
     for k, v in batch.items():
@@ -540,6 +651,10 @@ def run_step(model, state: TrainState, batch, priorities, per_image, *,
         else:
             feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
             feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
+        if dp and priorities is None:
+            every = draw(rpns[0], B * mesh.world, ins["gt_boxes"].shape[1],
+                         state.generator)
+            priorities = every[mesh.rank * B:(mesh.rank + 1) * B]
         totals, per = [], []
         for b in range(B):
             tot, m = per_image(feats[b], rpns[b],
@@ -549,15 +664,26 @@ def run_step(model, state: TrainState, batch, priorities, per_image, *,
             totals.append(tot)
             per.append(m)
         loss = torch.stack(totals).mean()
-        metrics = {k: torch.stack([m[k] for m in per]).mean().detach()
-                   for k in per[0]}
+        names = sorted(per[0])
+        metrics = torch.stack([torch.stack([m[k] for m in per]).mean().detach()
+                               for k in names])
         if not no_grad:
             for p in model.parameters():
                 p.grad = None
             loss.backward()
+            if dp:
+                grads = []
+                for n, p in model.named_parameters():
+                    if step_mask[n]:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                        grads.append(p.grad)
+                all_reduce_mean(mesh, grads + [metrics])
             state.tx.update(model, state.trace, state.count)
             for p in model.parameters():
                 p.grad = None
             state.count += 1
+        elif dp:
+            all_reduce_mean(mesh, [metrics])
     state.step += 1
-    return state, metrics
+    return state, dict(zip(names, metrics.unbind()))

@@ -43,15 +43,19 @@ def load_image_bgr(path: str) -> np.ndarray:
     return rgb[:, :, ::-1]
 
 
+def resized_hw(h: int, w: int, target_size: int, max_size: int):
+    """((h', w'), scale) of resize_im for an image of h x w."""
+    scale = float(target_size) / min(h, w)
+    if round(scale * max(h, w)) > max_size:
+        scale = float(max_size) / max(h, w)
+    return (int(round(h * scale)), int(round(w * scale))), scale
+
+
 def resize_im(im: np.ndarray, target_size: int, max_size: int):
     """Scale so the short side == target_size unless the long side would
     exceed max_size (reference lib/utils/image.py resize). Returns (uint8
     [h', w', C], scale)."""
-    h, w = im.shape[:2]
-    scale = float(target_size) / min(h, w)
-    if round(scale * max(h, w)) > max_size:
-        scale = float(max_size) / max(h, w)
-    out_hw = (int(round(h * scale)), int(round(w * scale)))
+    out_hw, scale = resized_hw(*im.shape[:2], target_size, max_size)
     x = torch.from_numpy(np.ascontiguousarray(im.astype(np.uint8)))
     x = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
     out = torch.nn.functional.interpolate(x, size=out_hw, mode="bilinear",
@@ -79,6 +83,13 @@ def pick_bucket(h: int, w: int, buckets) -> tuple[int, int]:
         if h <= bh and w <= bw:
             return (bh, bw)
     return tuple(sorted(buckets)[-1])
+
+
+def bucket_of(h: int, w: int, target_size: int, max_size: int,
+              buckets) -> tuple[int, int]:
+    """The bucket prepare_image puts an image of h x w in, from its size
+    alone (no decode)."""
+    return pick_bucket(*resized_hw(h, w, target_size, max_size)[0], buckets)
 
 
 def pad_to_bucket(im: np.ndarray, bucket: tuple[int, int]) -> np.ndarray:

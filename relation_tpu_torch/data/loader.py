@@ -14,13 +14,14 @@ permutations.
 
 from __future__ import annotations
 
+import copy
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from relation_tpu_torch.data.image import (load_image_bgr, prepare_image,
-                                          to_s2d_planar)
+from relation_tpu_torch.data.image import (bucket_of, load_image_bgr,
+                                          prepare_image, to_s2d_planar)
 
 
 class TrainLoader:
@@ -35,11 +36,18 @@ class TrainLoader:
     of the bytes to copy to the card, and the train step does the exact
     mean subtraction and pad zeroing there (core/predictor.py::
     _image_from_u8). ``image_loader(path)`` -> uint8 BGR [H, W, 3] replaces
-    the file decode."""
+    the file decode.
+
+    ``shard=(rank, world)`` (data parallel): the batches stay those of
+    ``batch_size`` images in one process's order, and the loader decodes
+    only the rank's ``batch_size // world`` rows of each, padded to the
+    largest bucket of the whole batch (found from the roidb's sizes,
+    data/image.py::bucket_of), so that the share has the shape of one
+    process's batch."""
 
     def __init__(self, roidb, cfg, batch_size: int, seed: int = 0,
                  num_prefetch: int = 4, num_workers: int = 4,
-                 image_loader=load_image_bgr):
+                 image_loader=load_image_bgr, shard: tuple = (0, 1)):
         self.roidb = list(roidb)
         self.cfg = cfg
         self.batch_size = batch_size
@@ -49,6 +57,10 @@ class TrainLoader:
         self.num_prefetch = num_prefetch
         self.num_workers = num_workers
         self.image_loader = image_loader
+        self.shard = tuple(shard)
+        if batch_size % self.shard[1]:
+            raise ValueError(f"batch of {batch_size} images for "
+                             f"{self.shard[1]} ranks")
         self._order = None
 
     def __len__(self):
@@ -102,22 +114,23 @@ class TrainLoader:
         return img, im_info, gt, gv
 
     @staticmethod
-    def _assemble(loaded):
+    def _assemble(loaded, pad_hw=(0, 0)):
         """Stack per-image worker outputs into one batch; images in a batch
-        share the largest bucket among them (zero pad — consistent for both
-        the HWC and the s2d planar layout, whose pad region is also zero)."""
+        share the largest bucket among them and ``pad_hw`` (zero pad —
+        consistent for both the HWC and the s2d planar layout, whose pad
+        region is also zero)."""
         ims, infos, gts, gvs = zip(*loaded)
         planar = ims[0].ndim == 3 and ims[0].shape[0] == 12 \
             and ims[0].shape[-1] != 3
         if planar:                               # [12, H/2, W/2]
-            bh = max(im.shape[1] for im in ims)
-            bw = max(im.shape[2] for im in ims)
+            bh = max([pad_hw[0] // 2] + [im.shape[1] for im in ims])
+            bw = max([pad_hw[1] // 2] + [im.shape[2] for im in ims])
             out = np.zeros((len(ims), 12, bh, bw), ims[0].dtype)
             for b, im in enumerate(ims):
                 out[b, :, :im.shape[1], :im.shape[2]] = im
         else:                                    # [H, W, 3]
-            bh = max(im.shape[0] for im in ims)
-            bw = max(im.shape[1] for im in ims)
+            bh = max([pad_hw[0]] + [im.shape[0] for im in ims])
+            bw = max([pad_hw[1]] + [im.shape[1] for im in ims])
             out = np.zeros((len(ims), bh, bw, 3), ims[0].dtype)
             for b, im in enumerate(ims):
                 out[b, :im.shape[0], :im.shape[1]] = im
@@ -127,14 +140,28 @@ class TrainLoader:
     def _make_batch(self, indices):
         return self._assemble([self._load_one(self.roidb[i]) for i in indices])
 
+    def _share(self, indices):
+        """(this rank's rows of a global batch, the (H, W) to pad them to:
+        the largest bucket of the whole batch; (0, 0) for one process)."""
+        rank, world = self.shard
+        if world == 1:
+            return indices, (0, 0)
+        n = len(indices) // world
+        target, max_size = self.cfg.SCALES[0]
+        hw = [bucket_of(self.roidb[i]["height"], self.roidb[i]["width"],
+                        target, max_size, self.buckets) for i in indices]
+        return (indices[rank * n:(rank + 1) * n],
+                (max(h for h, _ in hw), max(w for _, w in hw)))
+
     def __iter__(self):
         order = self._shuffled_order()
-        batches = [order[i:i + self.batch_size]
+        batches = [self._share(order[i:i + self.batch_size])
                    for i in range(0, len(order) - self.batch_size + 1,
                                   self.batch_size)]
         if self.num_prefetch <= 0 or self.num_workers <= 0:
-            for b in batches:
-                yield self._make_batch(b)
+            for b, pad_hw in batches:
+                yield self._assemble([self._load_one(self.roidb[i]) for i in b],
+                                     pad_hw)
             return
         # per-image futures in an in-order window (num_prefetch batches
         # deep): the decode parallelism does not depend on the batch size
@@ -147,14 +174,15 @@ class TrainLoader:
                         b = next(it, None)
                         if b is None:
                             break
-                        inflight.append([pool.submit(self._load_one,
-                                                     self.roidb[i]) for i in b])
+                        inflight.append(([pool.submit(self._load_one,
+                                                      self.roidb[i])
+                                          for i in b[0]], b[1]))
                     if not inflight:
                         break
-                    futs = inflight.popleft()
-                    yield self._assemble([f.result() for f in futs])
+                    futs, pad_hw = inflight.popleft()
+                    yield self._assemble([f.result() for f in futs], pad_hw)
             finally:
-                for futs in inflight:
+                for futs, _ in inflight:
                     for f in futs:
                         f.cancel()
 
@@ -182,6 +210,13 @@ class TestLoader:
 
     def __len__(self):
         return len(self.roidb)
+
+    def subset(self, indices):
+        """This loader over the entries ``indices`` of its roidb, in that
+        order (a data-parallel rank's images)."""
+        out = copy.copy(self)
+        out.roidb = [self.roidb[i] for i in indices]
+        return out
 
     def _load_one(self, entry):
         im = self.image_loader(entry["image"])

@@ -31,6 +31,10 @@ workflow of core/rpn_workflow.py, whose keys family_cfg sets as they do
 serves them as the JAX package's make_predict_fn does, with the RPN on the
 device, through core/predictor.py::build_predict_fn, so fpn_learn_nms takes
 the TPU.FPN_SPLIT_PREDICT form by default.
+
+``dryrun_multichip(n)`` is the counterpart of
+``__graft_entry__.py::dryrun_multichip``: one data-parallel train step over
+``n`` gloo ranks on the CPU, held against one process's step.
 """
 
 from __future__ import annotations
@@ -155,3 +159,63 @@ def entry(family: str = "flagship", device="cuda", seed: int = 0, cfg=None):
         return predict_fn(image, im_info, prepare_res4_folded(model, fuse))
     predict.tail, predict.model = predict_fn.tail, model
     return predict, (image, im_info)
+
+
+def _dryrun_rank(mesh, legs, batch):
+    from relation_tpu_torch.parallel.launch import train_steps
+    return {label: train_steps(mesh, cfg, batch, tiny=True)
+            for label, cfg in legs}
+
+
+def dryrun_multichip(n_devices: int) -> dict:
+    """One data-parallel train step over ``n_devices`` gloo ranks spawned on
+    the CPU (parallel/launch.py::spawn, a file:// store), tiny trunks at
+    the tiny proposal counts, for the flagship, the FPN and the DCN family
+    in f32, each held against one process's step on the same global batch
+    of ``n_devices`` 128x128 s2d images with two boxes each: the total loss
+    within 1e-3, the whole update and each leaf carrying 10% of it within
+    5% (relative L2; a dropped all-reduce is off by about 1, a sum in place
+    of a mean by about n - 1), every rank bit-equal after the step.
+    The JAX dry run's third leg is the full-depth flagship; here the
+    full-width DP step runs on the card (chip_smoke.py --phase dp). Returns
+    {label: update_agreement(...)}; raises AssertionError on a miss."""
+    import numpy as np
+    from relation_tpu_torch.parallel.launch import (spawn, train_steps,
+                                                    update_agreement)
+    from relation_tpu_torch.parallel.mesh import make_mesh
+    H = W = 128
+    B, max_gt = n_devices, 8
+    rel_tol = 0.05
+    rng = np.random.RandomState(0)
+    gt = np.zeros((B, max_gt, 5), np.float32)
+    gv = np.zeros((B, max_gt), bool)
+    for b in range(B):
+        gt[b, 0] = [10, 10, 60, 60, 1 + b % 80]
+        gt[b, 1] = [40, 50, 100, 110, 1 + (b + 7) % 80]
+        gv[b, :2] = True
+    batch = {"image": rng.randn(B, 12, H // 2, W // 2).astype(np.float32),
+             "im_info": np.tile(np.asarray([[H, W, 1.0]], np.float32), (B, 1)),
+             "gt_boxes": gt, "gt_valid": gv}
+    legs = [(label, family_cfg(family, tiny_shapes=True))
+            for label, family in (("c4-flagship", "flagship"),
+                                  ("fpn", "fpn_learn_nms"),
+                                  ("dcn", "dcn_learn_nms"))]
+    ranks = spawn(_dryrun_rank, n_devices, legs, batch, threads=1)
+    one = make_mesh(device="cpu")
+    out = {}
+    for label, cfg in legs:
+        ref = train_steps(one, cfg, batch, tiny=True)
+        dp = [r[label] for r in ranks]
+        assert len({d["digest"] for d in dp}) == 1, f"[{label}] ranks differ"
+        total, want = dp[0]["metrics"][0]["total_loss"], ref["metrics"][0]["total_loss"]
+        assert np.isfinite(total) and abs(total - want) <= 1e-3 * abs(want) + 1e-5, (
+            f"[{label}] total_loss {total} vs one process {want}")
+        agree = update_agreement(ref["init"], ref["params"], dp[0]["params"])
+        assert agree["norm"] > 1e-12, f"[{label}] nothing moved"
+        assert agree["global_rel"] <= rel_tol and agree["leaf_rel"] <= rel_tol, (
+            f"[{label}] DP update off the one-process update: {agree}")
+        out[label] = agree
+        print(f"dryrun_multichip({n_devices}) [{label}] ok: total_loss "
+              f"{total:.6f} (one process {want:.6f}), update rel err "
+              f"{agree['global_rel']:.2e}", flush=True)
+    return out

@@ -14,11 +14,19 @@ The parameters come from ``--ckpt`` (a params file or a checkpoint, of
 either package), else from the train driver's file of ``--test-epoch`` or
 TEST.test_epoch, else ``init_params(model, seed=0)``. With TEST.HAS_RPN
 false the head runs on cached proposals (``resolve_proposal_file``).
+
+A checkpoint whose ``__meta__`` says ``roi_method: pool`` (converted
+reference weights, relation_tpu_torch/tools/convert_reference_params.py)
+runs in the JAX driver's parity mode: exact ROIPooling, the exact FPN
+top-k, the f32 geometric-bias sinusoid, the dense learned-NMS attention
+(NMS_COMPACT_CLASSES 0) and the f32 deformable PSROI pool
+(``apply_roi_method``); ``--roi-method pool|align`` overrides the tag.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -64,8 +72,7 @@ def parse_args(argv=None):
     p.add_argument("--roi-method", default="auto",
                    choices=("auto", "align", "pool"),
                    help="ROI feature extraction; auto = the checkpoint's "
-                        "__meta__ roi_method, else cfg default ('pool' is not "
-                        "ported)")
+                        "__meta__ roi_method, else cfg default")
     p.add_argument("--device", default="cuda")
     # the sibling driver's flags only (rcnn_end2end_train_test.py forwards
     # one argv to both drivers); anything else is an error
@@ -120,6 +127,32 @@ def apply_flags(cfg, args) -> None:
         cfg.TPU.DEBUG_MONITOR = True
 
 
+# the keys the parity mode sets, printed by main as "ROI settings: {json}"
+ROI_KEYS = ("ROI_METHOD", "FPN_TOPK", "GEOM_EMB_DTYPE", "NMS_COMPACT_CLASSES",
+            "DCN_POOL_DTYPE")
+
+
+def apply_roi_method(cfg, roi_method: str, meta: dict) -> None:
+    """TPU.ROI_METHOD from ``--roi-method`` (``roi_method`` not "auto"), or
+    from a checkpoint's ``__meta__`` tag; a tag of "pool" (converted
+    reference weights, whose head is the reference's rounding max-pool
+    ROIPooling, resnet_v1_101_rcnn_base.py:790) also sets the JAX driver's
+    full parity mode (experiments/test.py:143-161): the exact pre-NMS top-k
+    of the FPN proposals, the f32 geometric-bias sinusoid, the single dense
+    learned-NMS attention and the f32 deformable PSROI pool."""
+    if roi_method != "auto":
+        cfg.TPU.ROI_METHOD = roi_method
+    elif meta.get("roi_method"):
+        cfg.TPU.ROI_METHOD = meta["roi_method"]
+        print(f"checkpoint meta: roi_method={meta['roi_method']} "
+              f"(source={meta.get('source', '?')})")
+        if meta["roi_method"] == "pool":
+            cfg.TPU.FPN_TOPK = "exact"
+            cfg.TPU.GEOM_EMB_DTYPE = "float32"
+            cfg.TPU.NMS_COMPACT_CLASSES = 0
+            cfg.TPU.DCN_POOL_DTYPE = "float32"
+
+
 def epoch_params_path(cfg, cfg_path: str, epoch: int) -> str:
     """The train driver's params file of ``epoch`` (under the TRAIN image
     set's directory)."""
@@ -158,14 +191,9 @@ def main(argv=None, image_loader=None, stats: dict | None = None):
             if os.path.exists(cand):
                 args.ckpt = cand
     blob, meta = read_params_blob(args.ckpt) if args.ckpt else (None, {})
-    if args.roi_method != "auto":
-        cfg.TPU.ROI_METHOD = args.roi_method
-    elif meta.get("roi_method"):
-        # converted reference weights carry a __meta__ tag; "pool" (exact
-        # MXNet ROIPooling) makes build_model raise: not ported yet
-        cfg.TPU.ROI_METHOD = meta["roi_method"]
-        print(f"checkpoint meta: roi_method={meta['roi_method']} "
-              f"(source={meta.get('source', '?')})")
+    apply_roi_method(cfg, args.roi_method, meta)
+    print("ROI settings: " + json.dumps({k: cfg.TPU.get(k) for k in ROI_KEYS}),
+          flush=True)
 
     enable_from_env_or_cfg(cfg)
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]

@@ -3,6 +3,7 @@ experiments/train.py; reference relation_rcnn/train_end2end.py).
 
     python -m relation_tpu_torch.experiments.train --cfg experiments/cfgs/<name>.yaml \\
         [--synthetic N] [--steps K] [--tiny] [--device cpu]
+    torchrun --nproc_per_node N -m relation_tpu_torch.experiments.train --cfg ...
 
 Reads the COCO-layout dataset under cfg.dataset.dataset_path:
 annotations/instances_<set>.json and images/<set>/ for each '+'-joined set of
@@ -14,14 +15,26 @@ seed=0)``. After each epoch it writes the checkpoint and the params file
 <output_path>/<cfg>/<image_set>/<model_prefix>-EEEE.{ckpt,params.msgpack};
 TRAIN.RESUME restarts from TRAIN.begin_epoch's checkpoint. ``--steps K``
 stops after K steps and saves that epoch. ``--synthetic N`` trains on N
-seeded random images instead of a dataset. One device; a mesh of several is
-not ported. ``--dataset-path`` is tolerated and ignored, as in the JAX
-driver: the dataset is cfg.dataset.dataset_path.
+seeded random images instead of a dataset. ``--dataset-path`` is tolerated
+and ignored, as in the JAX driver: the dataset is cfg.dataset.dataset_path.
+
+Data parallel: run under ``torchrun --nproc_per_node N`` (or with RANK and
+WORLD_SIZE set and ``--dist-init file:///path``), one rank a GPU and the
+NCCL backend (gloo with ``--device cpu``). The global batch is
+TRAIN.BATCH_IMAGES x N images, as the JAX driver's is TRAIN.BATCH_IMAGES x
+devices: every rank builds the same global batch order from the same seed
+and decodes only its share, padded to the largest bucket of the whole
+batch (data/loader.py::TrainLoader's ``shard``), so that the shapes are one
+process's; the step averages the gradients over the ranks
+(core/trainer.py::make_train_step). Rank 0 alone logs the Speedometer and
+writes the checkpoint and the params file. Without a distributed
+environment the driver is one process.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import pprint
 import shutil
@@ -43,6 +56,9 @@ def parse_args(argv=None):
                    help="cap total optimizer steps (0 = full schedule)")
     p.add_argument("--tiny", action="store_true", help="tiny backbone (debug)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dist-init", default=None,
+                   help="init_method of the process group (default: the "
+                        "environment torchrun sets)")
     # the sibling driver's flags only (rcnn_end2end_train_test.py forwards
     # one argv to both drivers); anything else is an error
     for flag in ("--ckpt", "--test-set", "--dataset-path"):
@@ -108,14 +124,21 @@ def main(argv=None, image_loader=None) -> dict:
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  make_train_step)
     from relation_tpu_torch.data.loader import TrainLoader
+    from relation_tpu_torch.parallel.mesh import (make_mesh, replicated,
+                                                  shard_batch)
     from relation_tpu_torch.utils.compile_cache import enable_from_env_or_cfg
     from relation_tpu_torch.utils.logging import Speedometer, create_logger
 
+    mesh = make_mesh(init_method=args.dist_init,
+                     device=_rank_device(args.device))
+    rank0 = mesh.rank == 0
     cfg = load_config(args.cfg)
     enable_from_env_or_cfg(cfg)
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]
     logger, out_path = create_logger(cfg.output_path or "output", cfg_name,
                                      cfg.dataset.image_set)
+    if not rank0:
+        logger.setLevel(logging.WARNING)      # rank 0 logs the run
     logger.info(f"config: {args.cfg}")
     # reference train_end2end.py:64,74-75: the config beside the run's
     # outputs and in the log
@@ -126,17 +149,23 @@ def main(argv=None, image_loader=None) -> dict:
     logger.info("training config:\n" + pprint.pformat(cfg))
 
     np.random.seed(0)
-    model = init_params(build_model(cfg, tiny=args.tiny, device=args.device),
+    model = init_params(build_model(cfg, tiny=args.tiny, device=mesh.device),
                         seed=0)
-    batch_size = int(cfg.TRAIN.BATCH_IMAGES)
+    batch_size = int(cfg.TRAIN.BATCH_IMAGES) * mesh.world
     if args.synthetic:
-        batches, epoch_size = synthetic_batches(cfg, args.synthetic, batch_size,
-                                                args.tiny)
+        global_batches, epoch_size = synthetic_batches(
+            cfg, args.synthetic, batch_size, args.tiny)
+
+        def batches():
+            for b in global_batches():
+                yield shard_batch(mesh, b)
     else:
         roidb = train_roidb(cfg)
         logger.info(f"roidb size: {len(roidb)}")
         kw = {} if image_loader is None else {"image_loader": image_loader}
-        loader = TrainLoader(roidb, cfg, batch_size, **kw)
+        # this rank's share of each global batch
+        loader = TrainLoader(roidb, cfg, batch_size,
+                             shard=(mesh.rank, mesh.world), **kw)
         epoch_size = len(loader)
 
         def batches():
@@ -149,8 +178,9 @@ def main(argv=None, image_loader=None) -> dict:
         ckpt = f"{model_prefix}-{begin_epoch:04d}.ckpt"
         state = restore_checkpoint(ckpt, state)
         logger.info(f"resumed from {ckpt}")
+    state = replicated(mesh, state)
 
-    step = make_train_step(model, cfg, device=args.device)
+    step = make_train_step(model, cfg, device=mesh.device, mesh=mesh)
     speedo = Speedometer(logger, batch_size, int(cfg.default.frequent))
     data_s, step_s, metrics, files, save_s = [], [], {}, {}, 0.0
     for epoch in range(begin_epoch, int(cfg.TRAIN.end_epoch)):
@@ -162,7 +192,8 @@ def main(argv=None, image_loader=None) -> dict:
             t2 = time.perf_counter()
             data_s.append(t1 - t)
             step_s.append(t2 - t1)
-            speedo.update(epoch, i, metrics)
+            if rank0:
+                speedo.update(epoch, i, metrics)
             t = time.perf_counter()
             if args.steps and len(step_s) >= args.steps:
                 break
@@ -170,19 +201,28 @@ def main(argv=None, image_loader=None) -> dict:
         # reference's module_checkpoint + do_checkpoint, train_end2end.py:
         # 151-152)
         t = time.perf_counter()
-        files = {"checkpoint": save_checkpoint(
-                     f"{model_prefix}-{epoch + 1:04d}.ckpt", state),
-                 "params": save_params(
-                     f"{model_prefix}-{epoch + 1:04d}.params.msgpack", model)}
+        files = {"checkpoint": f"{model_prefix}-{epoch + 1:04d}.ckpt",
+                 "params": f"{model_prefix}-{epoch + 1:04d}.params.msgpack"}
+        if rank0:
+            save_checkpoint(files["checkpoint"], state)
+            save_params(files["params"], model)
+            logger.info(f"saved checkpoint epoch {epoch + 1}")
         save_s = time.perf_counter() - t
-        logger.info(f"saved checkpoint epoch {epoch + 1}")
         if args.steps and len(step_s) >= args.steps:
             break
     logger.info("training done")
     if torch.cuda.is_available() and next(model.parameters()).is_cuda:
         torch.cuda.synchronize()
     return {"model": model, "state": state, "cfg": cfg, "metrics": metrics,
-            "data_s": data_s, "step_s": step_s, "save_s": save_s, **files}
+            "data_s": data_s, "step_s": step_s, "save_s": save_s,
+            "mesh": mesh, **files}
+
+
+def _rank_device(device: str) -> str:
+    """--device cuda means this rank's GPU (LOCAL_RANK) under torchrun."""
+    if device == "cuda" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    return device
 
 
 if __name__ == "__main__":

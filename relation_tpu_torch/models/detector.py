@@ -20,7 +20,7 @@ from relation_tpu_torch.models.relation import Dense, RelationModule
 from relation_tpu_torch.models.rpn import RPNHead
 from relation_tpu_torch.ops.deform import deformable_psroi_pool
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
-from relation_tpu_torch.ops.roi_pool import roi_align_mxu
+from relation_tpu_torch.ops.roi_pool import roi_align_mxu, roi_pool
 
 
 class RelationRCNN(nn.Module):
@@ -36,15 +36,22 @@ class RelationRCNN(nn.Module):
                  head_dtype: torch.dtype = torch.float32,
                  freeze_through: int = 0, dcn: bool = False,
                  dcn_pool_dtype: torch.dtype = torch.float32,
-                 lnms_allow_pallas: bool = True, compact_classes: int = 32):
+                 lnms_allow_pallas: bool = True, compact_classes: int = 32,
+                 roi_method: str = "align"):
         """``dcn``: deformable res5 and the deformable PSROI head (a no-trans
         pool feeds the zero-initialised ``offset`` FC, whose output steers a
         second pool); ``dcn_pool_dtype`` is the dtype both pools run in.
+        ``roi_method`` pools the plain head's ROIs: "align" (ROIAlign,
+        ``roi_align_mxu``) or "pool" (exact MXNet ROIPooling, ``roi_pool``;
+        TPU.ROI_METHOD).
         ``lnms_allow_pallas`` and ``compact_classes`` pick the learned-NMS
         attention's branch (LearnNMSHead, TPU.LNMS_ATTN and
         TPU.NMS_COMPACT_CLASSES)."""
         super().__init__()
+        if roi_method not in ("align", "pool"):
+            raise ValueError(f"roi_method {roi_method!r}: 'align' or 'pool'")
         self.backbone = backbone
+        self.roi_method = roi_method
         self.dcn, self.dcn_pool_dtype = dcn, dcn_pool_dtype
         self.conv_dtype = conv_dtype
         self.use_relation, self.use_learn_nms = use_relation, use_learn_nms
@@ -98,9 +105,11 @@ class RelationRCNN(nn.Module):
             return reduced, rpn_cls, rpn_bbox
         return reduced[0], rpn_cls[0], rpn_bbox[0]
 
-    def head(self, reduced_feat, rois, nongt_dim: int):
+    def head(self, reduced_feat, rois, nongt_dim: int, pool_only: bool = False):
         """ROI head: feat [h, w, 256], rois [N, 4] -> (cls_score [N, K],
-        bbox_pred [N, 4*num_reg], fc_all_2_relu [N, D])."""
+        bbox_pred [N, 4*num_reg], fc_all_2_relu [N, D]). ``pool_only``
+        returns the flattened pooled features [N, 7*7*256] f32 (the train
+        step's stop_after='pool' cut)."""
         scale = 1.0 / self.rcnn_feat_stride
         if self.dcn:
             pf = reduced_feat.to(self.dcn_pool_dtype)
@@ -110,9 +119,13 @@ class RelationRCNN(nn.Module):
             pooled = deformable_psroi_pool(pf, rois, off.reshape(-1, 2, 7, 7),
                                            scale, pooled_size=7,
                                            sample_per_part=4, trans_std=0.1)
+        elif self.roi_method == "pool":
+            pooled = roi_pool(reduced_feat, rois, scale, 7)
         else:
             pooled = roi_align_mxu(reduced_feat, rois, scale, 7)
         flat = pooled.reshape(pooled.shape[0], -1).float()
+        if pool_only:
+            return flat
         if self.use_relation:
             pos_t = extract_position_matrix_t(rois, nongt_dim)
         x = self.fc_new_1(flat)

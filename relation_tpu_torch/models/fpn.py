@@ -10,9 +10,10 @@ of relation_tpu/models/fpn.py (reference symbols/resnet_v1_101_rcnn_fpn*.py).
   top-k and one NMS;
 - ROI dispatch: feat_id = clip(floor(2 + log2(sqrt(w*h)/224)), 0, 3) picks
   stride 4, 8, 16 or 32; each ROI is pooled (7x7 ROIAlign) at its own level
-  only. The JAX package pools every ROI at all four levels and selects with
-  a one-hot contraction, a TPU static-shape workaround; the selection is
-  exact, so the pooled features are the same.
+  only (or by exact ROIPooling, ``roi_method='pool'``). The JAX package
+  pools every ROI at all four levels and selects with a one-hot
+  contraction, a TPU static-shape workaround; the selection is exact, so
+  the pooled features are the same.
 
 Public methods keep the JAX package's layouts so the tests compare like with
 like: pyramid levels [h, w, 256] and RPN outputs in the raw conv layout
@@ -33,7 +34,7 @@ from relation_tpu_torch.models.rpn import RPNHead, decode_level
 from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
 from relation_tpu_torch.ops.nms import nms_topk_presorted
-from relation_tpu_torch.ops.roi_pool import roi_align_mxu
+from relation_tpu_torch.ops.roi_pool import roi_align_mxu, roi_pool
 
 FPN_STRIDES = (64, 32, 16, 8, 4)          # P6..P2, reference output order
 DISPATCH_STRIDES = (4, 8, 16, 32)          # rois_0..rois_3
@@ -100,19 +101,21 @@ def roi_level_dispatch(rois: torch.Tensor) -> torch.Tensor:
     return torch.clamp(fid, 0, 3).to(torch.int32)
 
 
-def pool_pyramid(pyramid, rois: torch.Tensor, pooled_size: int = 7):
-    """7x7 ROIAlign of every ROI at its dispatch level: pyramid {stride:
-    [h, w, C]}, rois [R, 4] -> [R, P, P, C]. The ROIs are grouped by level
-    (one host read of the four counts), pooled level by level and put back
-    in their order."""
+def pool_pyramid(pyramid, rois: torch.Tensor, pooled_size: int = 7,
+                 roi_method: str = "align"):
+    """7x7 ROIAlign (``roi_method='align'``) or exact ROIPooling ('pool')
+    of every ROI at its dispatch level: pyramid {stride: [h, w, C]}, rois
+    [R, 4] -> [R, P, P, C]. The ROIs are grouped by level (one host read of
+    the four counts), pooled level by level and put back in their order."""
+    pool = roi_pool if roi_method == "pool" else roi_align_mxu
     fid = roi_level_dispatch(rois)
     order = torch.argsort(fid, stable=True)
     counts = torch.bincount(fid, minlength=len(DISPATCH_STRIDES)).tolist()
     parts, lo = [], 0
     for s, n in zip(DISPATCH_STRIDES, counts):
         if n:
-            parts.append(roi_align_mxu(pyramid[s], rois[order[lo:lo + n]],
-                                       1.0 / s, pooled_size))
+            parts.append(pool(pyramid[s], rois[order[lo:lo + n]], 1.0 / s,
+                              pooled_size))
         lo += n
     pooled = torch.cat(parts)
     out = torch.empty_like(pooled)
@@ -160,7 +163,8 @@ class RelationRCNNFPN(nn.Module):
     default, TPU.FPN_ALLOW_PALLAS) is the JAX package's XLA branch, which the
     port runs as two kernels, geometric bias then attention, over the active
     classes when at most ``compact_classes`` are active. The head's relation
-    modules always run the geometric-bias kernel."""
+    modules always run the geometric-bias kernel. ``roi_method`` as in
+    ``pool_pyramid``."""
 
     def __init__(self, num_classes: int = 81, num_anchors: int = 3,
                  class_agnostic: bool = True, use_relation: bool = True,
@@ -170,9 +174,12 @@ class RelationRCNNFPN(nn.Module):
                  conv_dtype: torch.dtype = torch.bfloat16,
                  head_dtype: torch.dtype = torch.float32,
                  freeze_through: int = 0, lnms_allow_pallas: bool = False,
-                 compact_classes: int = 32):
+                 compact_classes: int = 32, roi_method: str = "align"):
         super().__init__()
+        if roi_method not in ("align", "pool"):
+            raise ValueError(f"roi_method {roi_method!r}: 'align' or 'pool'")
         self.backbone = backbone
+        self.roi_method = roi_method
         self.conv_dtype = conv_dtype
         self.use_relation, self.use_learn_nms = use_relation, use_learn_nms
         if backbone == "resnet101":
@@ -222,11 +229,15 @@ class RelationRCNNFPN(nn.Module):
         return ({s: f[0] for s, f in pyramid.items()},
                 {s: (c[0], b[0]) for s, (c, b) in rpn_out.items()})
 
-    def head(self, pyramid, rois, nongt_dim: int):
+    def head(self, pyramid, rois, nongt_dim: int, pool_only: bool = False):
         """4-level pooled head: pyramid {stride: [h, w, 256]}, rois [N, 4] ->
-        (cls_score [N, K], bbox_pred [N, 4*num_reg], fc2 [N, D])."""
-        pooled = pool_pyramid(pyramid, rois)
+        (cls_score [N, K], bbox_pred [N, 4*num_reg], fc2 [N, D]).
+        ``pool_only`` returns the flattened pooled features (the train
+        step's stop_after='pool' cut)."""
+        pooled = pool_pyramid(pyramid, rois, roi_method=self.roi_method)
         flat = pooled.reshape(pooled.shape[0], -1).float()
+        if pool_only:
+            return flat
         if self.use_relation:
             pos_t = extract_position_matrix_t(rois, nongt_dim)
         x = self.roi_pool_fc1(flat)

@@ -43,9 +43,19 @@ def _draw(priorities, count: int, n: int, generator, device):
         if len(priorities) != count:
             raise ValueError(f"expected {count} priority vectors, "
                              f"got {len(priorities)}")
-        return [torch.tensor(np.asarray(p), dtype=torch.float32, device=device)
+        return [p.to(device=device, dtype=torch.float32)
+                if isinstance(p, torch.Tensor) else
+                torch.tensor(np.asarray(p), dtype=torch.float32, device=device)
                 for p in priorities]
     return [_uniform(n, generator, device) for _ in range(count)]
+
+
+def uniform_priorities(generator: torch.Generator, count: int, n: int,
+                       device) -> tuple:
+    """``count`` uniform vectors [n] drawn from ``generator`` in sequence,
+    as ``anchor_targets`` (2: fg, bg) and sampled-mode ``sample_rois`` (4)
+    draw them: a data-parallel step draws the whole batch's this way."""
+    return tuple(_draw(None, count, n, generator, device))
 
 
 def _keep_top(mask: torch.Tensor, priority: torch.Tensor, cap, k_max: int

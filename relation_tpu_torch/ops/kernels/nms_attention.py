@@ -86,7 +86,9 @@ def nms_relation_attention_reference(pos_t, q, k, v, wg, bg, wl, active=None,
                        k.reshape(C, N, G, d)) / (float(d) ** 0.5)
     attn = torch.softmax(aff + bias, dim=-1)
     av = torch.einsum("cgij,cjf->cgif", attn, v)                # [C, G, N, F]
-    return torch.einsum("cgif,gfe->cige", av, wl).reshape(C, N, -1)
+    # the width spelled out: C may be 0 (no class active)
+    return torch.einsum("cgif,gfe->cige", av, wl).reshape(
+        C, N, wl.shape[0] * wl.shape[2])
 
 
 def _launch(pos_t, q, k, v, wg, bg, wl, active, scale, name):

@@ -1,6 +1,6 @@
 """Rehearse chip_smoke.py's end-to-end phases on the CPU, at the tiny size.
 
-    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow|eval]
+    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow|eval|dp|reference]
 
 A CUDA kernel cannot run without a card, so this is no check of the kernels:
 it finds wrong paths, arguments, shapes and control flow in chip_smoke.py
@@ -18,8 +18,10 @@ FPN ``run_training`` of the three families with ``tiny=True``, then
 ``run_workflow`` (phase 12; ``--phase workflow`` rehearses it alone), then
 ``run_eval`` (phase 13: the drivers on a mini dataset of 48x64 and 64x48
 images; ``--phase eval`` rehearses it alone, ``--no-pil`` takes its route
-for a machine without PIL). It prints what the script prints; its times
-are CPU times and mean nothing.
+for a machine without PIL), then ``run_dp`` (phase 14: two gloo ranks
+spawned on the CPU, where they run the plain versions; ``--phase dp``) and
+``run_reference`` (phase 15 with the tiny trunk; ``--phase reference``). It
+prints what the script prints; its times are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
 
 def install_stubs() -> None:
     import relation_tpu_torch.models.backbone as bb
+    import relation_tpu_torch.models.detector as det
+    import relation_tpu_torch.models.fpn as fpn
     import relation_tpu_torch.models.relation as rel
     import relation_tpu_torch.ops.deform as deform
     import relation_tpu_torch.ops.nms as nms
@@ -42,7 +46,7 @@ def install_stubs() -> None:
     from relation_tpu_torch.ops.kernels import (bias_attention, bottleneck_proj,
                                                 dconv_col2im, geom_bias,
                                                 nms_attention, nms_kernel, res4,
-                                                stem)
+                                                roi_pool, stem)
     torch.cuda.synchronize = lambda *a, **k: None
     chip_smoke.time_ms = lambda torch, fn, **k: (fn(), 0.0)[1]
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
@@ -67,6 +71,19 @@ def install_stubs() -> None:
     stem._launch = stem.stem_reference
     res4._launch = res4.bottleneck_stack_reference
 
+    def pool_launch(feat, rois, scale, P, with_argmax=True):
+        am = roi_pool.roi_pool_argmax_reference(feat, rois, scale, P)
+        return (roi_pool._pool_at(feat.detach(), am),
+                am.to(torch.int32) if with_argmax else None)
+
+    def pool_launch_bwd(dout, argmax, H, W):
+        C = dout.shape[-1]
+        d = torch.zeros(H * W * C, dtype=torch.float32)
+        idx = (argmax.long().clamp(min=0) * C + torch.arange(C)).reshape(-1)
+        d.index_add_(0, idx, (dout.float() * (argmax >= 0)).reshape(-1))
+        return d.reshape(H, W, C)
+    roi_pool._launch, roi_pool._launch_bwd = pool_launch, pool_launch_bwd
+
     # the model's calls, through the Functions and counters of the card path
     def counted(mod, attr, fn):
         def call(*a, **k):
@@ -86,6 +103,8 @@ def install_stubs() -> None:
     rel.fused_bias_attention_skip = counted(
         bias_attention, "skip_launches", bias_attention.bias_attention_reference)
     bb.stem_conv1_bn_relu = stem._Stem.apply
+    det.roi_pool = fpn.roi_pool = lambda f, r, s, P=7: roi_pool._pool_kernels(
+        f.contiguous(), r.detach().float().contiguous(), float(s), int(P))
     def nms_keep(bT, *a, **k):
         from relation_tpu_torch.ops.kernels import _build
         _build.tally(nms_kernel.launch_shapes,
@@ -103,7 +122,8 @@ def main() -> None:
     import argparse
     import chip_smoke
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "workflow", "eval"],
+    ap.add_argument("--phase", choices=["all", "workflow", "eval", "dp",
+                                        "reference"],
                     default="all")
     ap.add_argument("--no-pil", action="store_true",
                     help="phase 13 as on a machine without PIL")
@@ -118,6 +138,14 @@ def main() -> None:
     if args.phase == "eval":
         chip_smoke.run_eval(torch, cpu, card=card, tiny=True,
                             use_pil=False if args.no_pil else None)
+        print("rehearsal done: control flow only, no kernel ran")
+        return
+    if args.phase == "dp":
+        chip_smoke.run_dp(torch, cpu, card=card, tiny=True)
+        print("rehearsal done: control flow only, no kernel ran")
+        return
+    if args.phase == "reference":
+        chip_smoke.run_reference(torch, cpu, card=card, tiny=True)
         print("rehearsal done: control flow only, no kernel ran")
         return
     chip_smoke.run_flagship(torch, cpu, tiny=True)
@@ -135,6 +163,8 @@ def main() -> None:
     chip_smoke.run_workflow(torch, cpu, card=card, tiny=True)
     chip_smoke.run_eval(torch, cpu, card=card, tiny=True,
                         use_pil=False if args.no_pil else None)
+    chip_smoke.run_dp(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_reference(torch, cpu, card=card, tiny=True)
     print("rehearsal done: control flow only, no kernel ran")
 
 

@@ -21,7 +21,7 @@ from relation_tpu_torch.ops.kernels import (bias_attention as BA,
                                             dconv_col2im as DC, geom_bias as GB,
                                             nms_attention as NA,
                                             nms_kernel as NK, res4 as RS,
-                                            stem as ST)
+                                            roi_pool as RP, stem as ST)
 from tests.test_torch_helpers import NMS_EDGE_CASES, nms_edge_case
 
 pytestmark = pytest.mark.cuda
@@ -843,3 +843,73 @@ def test_fused_attention_kernels_bit_equal_and_any_n(dev, C, N, G, D, F, E,
     assert torch.equal(NA.fused_nms_relation_attention_skip(*args, active)[on],
                        got[on])
     assert torch.equal(NA.fused_nms_relation_attention(*args), full)
+
+
+def _roi_case(rng, H, W, C, R, stride=16):
+    """Clipped ROIs over a map of H x W cells, sides of 1 to W cells, some
+    degenerate (sub-cell) ones among them."""
+    x1 = rng.uniform(-10, W * stride, R)
+    y1 = rng.uniform(-10, H * stride, R)
+    wh = np.exp(rng.uniform(np.log(2.0), np.log(W * stride), (R, 2)))
+    rois = np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1)
+    rois[:, 0::2] = rois[:, 0::2].clip(0, W * stride - 1)
+    rois[:, 1::2] = rois[:, 1::2].clip(0, H * stride - 1)
+    rois[: R // 8, 2:] = rois[: R // 8, :2] + 0.4
+    return rois.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,W,C,R,P", [(38, 64, 256, 300, 7), (25, 40, 8, 33, 3),
+                                       (7, 5, 3, 10, 7), (152, 256, 64, 40, 7)])
+def test_roi_pool_kernel_matches_plain(dev, dtype, H, W, C, R, P):
+    """Forward: values and argmax equal to the plain version's (maxima of the
+    inputs, first maximum in scan order); one launch a call; under no_grad
+    the forward without the argmax gives the same values. Backward, on
+    the cotangent rounded to feat's dtype as the kernel receives it: the
+    atomics' sums within 1e-5 of the largest element of the plain
+    version's in f32 (the same terms in another order); in bf16, the
+    kernel's f32 sums rounded once against the plain f32 gradient rounded
+    to bf16, within one bf16 step."""
+    rng = np.random.RandomState(H + C)
+    dt = getattr(torch, dtype)
+    feat = torch.tensor(rng.randn(H, W, C).astype(np.float32), device=dev).to(dt)
+    rois = _tens(_roi_case(rng, H, W, C, R), dev)
+    cot = torch.tensor(rng.randn(R, P, P, C).astype(np.float32), device=dev)
+    before = (RP.launches, RP.bwd_launches)
+    f = feat.clone().requires_grad_()
+    got = RP.roi_pool(f, rois, 1.0 / 16, P)
+    (got.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (RP.launches, RP.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref_f = feat.float().clone().requires_grad_()
+    want = RP.roi_pool_reference(ref_f, rois, 1.0 / 16, P)
+    # the kernel's cotangent arrives in feat's dtype: the same values here
+    (want * cot.to(dt).float()).sum().backward()
+    assert got.dtype == dt
+    assert torch.equal(got.detach().float(), want.detach())
+    am = RP.roi_pool_argmax_reference(feat, rois, 1.0 / 16, P)
+    _, k_am = RP._launch(feat, rois, 1.0 / 16, P)
+    assert torch.equal(k_am.long(), am)
+    # inference: the forward without the argmax, one launch, the same values
+    with torch.no_grad():
+        again = RP.roi_pool(f, rois, 1.0 / 16, P)
+    assert RP.launches == before[0] + 2
+    assert torch.equal(again, got.detach())
+    if dtype == "float32":
+        top = float(ref_f.grad.abs().max())
+        assert float((f.grad - ref_f.grad).abs().max()) <= 1e-5 * top
+    else:
+        g = ref_f.grad.to(dt).float()
+        assert ((f.grad.float() - g).abs()
+                <= g.abs() * 2.0 ** -7 + 1e-30).all()
+
+
+def test_roi_pool_kernel_refuses_bad_inputs(dev):
+    feat = torch.zeros(4, 4, 2, device=dev)
+    rois = torch.zeros(3, 4, device=dev)
+    with pytest.raises(ValueError):
+        RP.roi_pool(feat[None], rois, 0.25)
+    with pytest.raises(TypeError):
+        RP.roi_pool(feat.to(torch.float16), rois, 0.25)
+    with pytest.raises(ValueError):
+        RP.roi_pool(feat, rois.cpu(), 0.25)

@@ -177,12 +177,15 @@ def test_end2end_driver_tests_the_newest_params(workdir, monkeypatch):
     with pytest.raises(FileNotFoundError, match="--test-epoch 2"):
         ttest.main(["--cfg", workdir, "--tiny", "--device", "cpu",
                     "--test-epoch", "2"])
-    # a converted reference checkpoint asks for exact ROIPooling: not ported
-    model = build_model(load_config(workdir), tiny=True, device="cpu")
+    # a converted reference checkpoint asks for exact ROIPooling: the
+    # parity mode evaluates every image
+    from relation_tpu_torch.convert import init_params
+    model = init_params(build_model(load_config(workdir), tiny=True,
+                                    device="cpu"), seed=0)
     save_params("pool.params.msgpack", model, meta={"roi_method": "pool"})
-    with pytest.raises(NotImplementedError, match="pool"):
-        ttest.main(["--cfg", workdir, "--tiny", "--device", "cpu",
-                    "--ckpt", "pool.params.msgpack"])
+    _, pooled = ttest.main(["--cfg", workdir, "--tiny", "--device", "cpu",
+                            "--ckpt", "pool.params.msgpack", "--ignore-cache"])
+    assert set(pooled) == set(dets)
 
 
 def test_rcnn_train_test_dataset_through_stage4(workdir):

@@ -139,7 +139,7 @@ def test_pred_eval_matches_jax(setup, jax_run, tmp_path):
 def test_pred_eval_window_and_loader_paths_bit_equal(setup):
     """The window depth and the injected image arrays change nothing;
     prewarm_buckets calls the predict function once a bucket, in the
-    loader's layout; a mesh of two devices raises."""
+    loader's layout; a one-process mesh changes nothing."""
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.data.image import image_hw
     s = setup
@@ -159,8 +159,10 @@ def test_pred_eval_window_and_loader_paths_bit_equal(setup):
     loader = TestLoader(roidb, cfg, image_loader=array_loader(s["arrays"]))
     _, other = tev.pred_eval(s["pm"], cfg, s["tds"], roidb, loader=loader)
     assert all(np.array_equal(other[k], base[k]) for k in base)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tev.pred_eval(s["pm"], cfg, s["tds"], roidb, mesh=[0, 1])
+    from relation_tpu_torch.parallel.mesh import make_mesh
+    _, one = tev.pred_eval(s["pm"], cfg, s["tds"], roidb,
+                           mesh=make_mesh(device="cpu"))
+    assert all(np.array_equal(one[k], base[k]) for k in base)
 
 
 def test_pred_eval_rcnn_from_a_loader_none_dump(setup, tmp_path):

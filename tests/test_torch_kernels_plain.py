@@ -175,3 +175,22 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(rng):
     assert np.array_equal(n(ta.fused_nms_relation_attention_skip(*args)),
                           n(ta.nms_relation_attention_reference(*args)))
     assert [m.launches for m in (tg, tn, ts, ta)] == counters
+
+
+def test_attention_plain_versions_take_no_active_class():
+    """With no class active (every score under the learned-NMS class
+    threshold) the plain skip attentions return zeros of the full shape,
+    as the kernels leave the inactive rows."""
+    import torch
+    from relation_tpu_torch.ops.kernels import bias_attention as tb
+    C, N, G, D, F, E = 3, 5, 4, 8, 6, 2
+    q = k = torch.randn(C, N, G * D)
+    v, wl = torch.randn(C, N, F), torch.randn(G, F, E)
+    active = torch.zeros(C)
+    out = ta.nms_relation_attention_reference(
+        torch.randn(C, 4, N, N), q, k, v, torch.randn(64, G), torch.randn(G),
+        wl, active)
+    assert out.shape == (C, N, G * E) and not out.any()
+    out = tb.bias_attention_reference(torch.randn(C, G, N, N), q, k, v, wl,
+                                      active)
+    assert out.shape == (C, N, G * E) and not out.any()

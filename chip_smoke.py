@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase eval     # build, rows 1, 2, 4, 5, 7, 9, phase 13
     python3 chip_smoke.py --phase dp       # build, rows 1, 2, 4, 5, 7, 9, roi_pool, phase 14
     python3 chip_smoke.py --phase reference  # the same checks, phase 15
+    python3 chip_smoke.py --phase cuts     # build, rows 1, 2, 4-7, 9, phase 16
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
@@ -150,7 +151,26 @@
    in f32 and bf16, at the portrait bucket's 50x64 map in bf16 and at the
    four FPN levels of a 608x1024 image; inference launches the forward
    without the argmax, the train step the forward with it.
-16. Prints the launches of rows 1, 2, 4, 7, 9 and roi_pool by shape, one
+16. The production-shape gate and the train steps' cuts (run_gate,
+   run_cuts): the flagship through entry() at 608x1024 in f32 on
+   init_params(seed=0) weights with the four calibration factors of
+   tests/golden/flagship_port.npz applied on the host, one request on the
+   kernels held to the JAX package's detections in that file in the bands
+   of phase 4 (relation_tpu_torch/tools/flagship_golden.py), and one in the
+   flagship's own bf16-trunk configuration (the stem kernel on the path),
+   its head feature held to the JAX package's bf16 one in that file within
+   3e-2 (mean |delta| / mean |x|); then every
+   stop_after cut once at full width, B=2, without weight decay: the
+   flagship end-to-end step's eleven cuts, the full step and lnms_attn
+   under fully_fused, and the fpn_learn_nms RCNN step's 'trunk', 'sample',
+   'pool', 'head' and full step on 1000 cached ROIs. Each cut: finite
+   metrics, a pure tap's loss at most 1e-20, gradients delivered to exactly
+   the parameter groups the cut reaches (a leaf it does not reach stays
+   bit-equal), the launch counters showing where the learned-NMS
+   attention runs (none before lnms_attn; rows 1, 2 and 7, or row 6 under
+   fully_fused, from it on); each cut's ms on the host clock and by CUDA
+   events.
+17. Prints the launches of rows 1, 2, 4, 7, 9 and roi_pool by shape, one
    JSON line describing every kernel (launches summed over the driven
    paths), then the device line.
 
@@ -1638,40 +1658,6 @@ def run_flagship(torch, dev, n_images: int = 2, n_active: int = 16,
     return launches, statistics.median(times)
 
 
-def seed_offsets(torch, model, cfg, image, im_info, seed: int = 5) -> None:
-    """Give a DCN model's offset branches small non-zero values. The JAX
-    package and init_params start them at zero, which samples on the integer
-    grid only and leaves the offset gradient trivial inputs. Every offset
-    conv and the ``offset`` FC gets seeded random weights (the biases stay
-    at zero: at x0.01 learning rate a bias of visible size would not move
-    by one f32 step in a few updates), and one request
-    scales each, in the order the model runs them, so that its output has
-    standard deviation 1: about a pixel of offset in res5, and a bin shift of
-    a tenth of the ROI's size (trans_std 0.1) in the head."""
-    from relation_tpu_torch.core.predictor import make_predict_fn
-    mods = [m for name, m in model.named_modules()
-            if name.endswith("_branch2b_offset") or name == "offset"]
-    rng = np.random.RandomState(seed)
-    hooks = []
-
-    def calibrate(m, _inp, out):
-        bias = m.bias.view((1, -1) + (1,) * (out.dim() - 2)).to(out.dtype)
-        scale = 1.0 / max(float((out - bias).std()), 1e-12)
-        m.weight.data.mul_(scale)
-        return (out - bias) * scale + bias
-    with torch.no_grad():
-        for m in mods:
-            fan_in = m.weight[0].numel()
-            m.weight.copy_(torch.tensor(rng.randn(*m.weight.shape) / fan_in ** 0.5,
-                                        dtype=torch.float32))
-            hooks.append(m.register_forward_hook(calibrate))
-    try:
-        make_predict_fn(model, cfg)(image, im_info)
-    finally:
-        for h in hooks:
-            h.remove()
-
-
 def run_dcn_inference(torch, dev, card: str = "", tiny: bool = False):
     """The DCN family at inference: two dcn_learn_nms requests and one
     dcn_relation request (classic per-class NMS tail), kernel path then
@@ -1681,6 +1667,7 @@ def run_dcn_inference(torch, dev, card: str = "", tiny: bool = False):
     from relation_tpu_torch.core.predictor import make_predict_fn
     from relation_tpu_torch.core.trainer import build_model
     from relation_tpu_torch.entry import BUCKET, family_cfg
+    from relation_tpu_torch.tools.calibrate import seed_offsets
     H, W = (64, 128) if tiny else BUCKET
     images = [torch.tensor(np.random.RandomState(7 + i).randn(12, H // 2, W // 2)
                            * 40.0, dtype=torch.float32, device=dev)
@@ -1693,7 +1680,7 @@ def run_dcn_inference(torch, dev, card: str = "", tiny: bool = False):
         if tiny:
             cfg.TEST.SCORE_THRESH = 0.0
         model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
-        seed_offsets(torch, model, cfg, imgs[0], im_info)
+        seed_offsets(model, cfg, imgs[0], im_info)
         predict = make_predict_fn(model, cfg)
         predict(imgs[0], im_info)                       # warm-up
         torch.cuda.synchronize()
@@ -1755,41 +1742,6 @@ def run_dcn_inference(torch, dev, card: str = "", tiny: bool = False):
 # phases 8-9: the fused trunk
 # --------------------------------------------------------------------------
 
-def calibrate_heads(torch, model, predict, image, im_info) -> None:
-    """Scale the random weights of the four prediction layers so that, on
-    one request, their outputs have the spread of a trained detector: RPN
-    and class logits standard deviation 2, box deltas 0.2 (each layer in
-    the order the model runs it, the later ones seeing the calibrated
-    earlier ones). From init_params, with the trunk's activations at
-    several hundred, the RPN logits reach +-500 (tied foreground
-    probabilities of 1.0) and its box deltas 400 (every proposal clipped to
-    the whole image), so a band on the detections would compare
-    degenerate boxes."""
-    targets = {model.rpn.rpn_cls_score: 2.0, model.rpn.rpn_bbox_pred: 0.2,
-               model.cls_score: 2.0, model.bbox_pred: 0.2}
-    hooks, done = [], set()
-
-    def calibrate(m, _inp, out):
-        # once a layer: the FPN's RPN head runs on five levels a request, and
-        # is scaled on the first (P6)
-        if m in done:
-            return None
-        done.add(m)
-        bias = m.bias.view((1, -1) + (1,) * (out.dim() - 2)).to(out.dtype)
-        scale = targets[m] / max(float((out - bias).float().std()), 1e-12)
-        # detach() shares the version counter, so the bf16 copy that
-        # Conv2d keeps of its weight is made again
-        m.weight.detach().mul_(scale)
-        return (out - bias) * scale + bias
-    for m in targets:
-        hooks.append(m.register_forward_hook(calibrate))
-    try:
-        predict(image, im_info)
-    finally:
-        for h in hooks:
-            h.remove()
-
-
 def run_fused_flagship(torch, dev, card: str = "", n_images: int = 2,
                        tiny: bool = False):
     """The flagship served through entry() with TPU.FUSE_RES4 and BN
@@ -1809,6 +1761,7 @@ def run_fused_flagship(torch, dev, card: str = "", n_images: int = 2,
     to 64x128; the trunk stays full depth. Returns (launches, median
     ms/image, the model)."""
     from relation_tpu_torch.entry import BUCKET, entry, family_cfg
+    from relation_tpu_torch.tools.calibrate import calibrate_heads
     cfg = family_cfg("flagship", tiny_shapes=tiny)
     cfg.TPU.FUSE_RES4 = True
     if tiny:
@@ -1821,7 +1774,7 @@ def run_fused_flagship(torch, dev, card: str = "", n_images: int = 2,
                            * 40.0, dtype=torch.float32, device=dev)
               for i in range(n_images)]
     im_info = torch.tensor([600.0, 1000.0, 1.667], device=dev)
-    calibrate_heads(torch, model, predict, images[0], im_info)
+    calibrate_heads(model, predict, images[0], im_info)
     predict(images[0], im_info)                          # warm-up
     torch.cuda.synchronize()
 
@@ -1986,6 +1939,7 @@ def run_fpn(torch, dev, card: str = "", tiny: bool = False):
     request})."""
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.entry import BUCKET, entry, family_cfg
+    from relation_tpu_torch.tools.calibrate import calibrate_heads
     H, W = (64, 128) if tiny else BUCKET
     images = [torch.tensor(np.random.RandomState(31 + i).randn(12, H // 2, W // 2)
                            * 40.0, dtype=torch.float32, device=dev)
@@ -2004,7 +1958,7 @@ def run_fpn(torch, dev, card: str = "", tiny: bool = False):
         t0 = time.perf_counter()
         predict, _ = entry(family, device=dev, cfg=cfg)
         model = predict.model
-        calibrate_heads(torch, model, predict, images[0], im_info)
+        calibrate_heads(model, predict, images[0], im_info)
         out0 = predict(images[0], im_info)
         torch.cuda.synchronize()
         log(f"[e2e {family}] built and calibrated through entry(): "
@@ -2132,6 +2086,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  make_train_step, trainable_mask)
     from relation_tpu_torch.entry import BUCKET, family_cfg
+    from relation_tpu_torch.tools.calibrate import calibrate_heads, seed_offsets
     H, W = (64, 128) if tiny else BUCKET
     batch = training_batch(H, W)
     B = batch["image"].shape[0]
@@ -2153,10 +2108,10 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
         else:
             init_params(model, seed=0)
             if dcn:
-                seed_offsets(torch, model, cfg, batch["image"][0],
+                seed_offsets(model, cfg, batch["image"][0],
                              batch["im_info"][0])
             if fpn:
-                calibrate_heads(torch, model, build_predict_fn(model, cfg),
+                calibrate_heads(model, build_predict_fn(model, cfg),
                                 torch.tensor(batch["image"][0], device=dev),
                                 torch.tensor(batch["im_info"][0], device=dev))
         return (model, create_train_state(model, cfg, seed=0),
@@ -2352,6 +2307,7 @@ def workflow_setup(torch, dev, tiny: bool = False):
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import build_model
     from relation_tpu_torch.entry import BUCKET, family_cfg
+    from relation_tpu_torch.tools.calibrate import calibrate_heads
     H, W = (64, 128) if tiny else BUCKET
     data = training_batch(H, W, B=3)
     cfg = family_cfg("fpn_learn_nms", tiny_shapes=tiny)
@@ -2364,7 +2320,7 @@ def workflow_setup(torch, dev, tiny: bool = False):
                       "gt_classes": gt[:, 4].astype(np.int32),
                       "iscrowd": np.zeros(len(gt), bool)})
     model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
-    calibrate_heads(torch, model, build_predict_fn(model, cfg),
+    calibrate_heads(model, build_predict_fn(model, cfg),
                     torch.tensor(items[0][1], device=dev),
                     torch.tensor(items[0][2], device=dev))
     torch.cuda.synchronize()
@@ -2757,6 +2713,7 @@ def run_eval(torch, dev, card: str = "", tiny: bool = False,
     from relation_tpu_torch.experiments import rcnn_end2end_train_test as e2e
     from relation_tpu_torch.experiments import test as test_driver
     from relation_tpu_torch.experiments import train as train_driver
+    from relation_tpu_torch.tools.calibrate import calibrate_heads
     from relation_tpu_torch.tools.mini_coco import array_loader, write_mini_coco
     from relation_tpu_torch.utils import native
     tag = "[eval flagship]"
@@ -2968,7 +2925,7 @@ def run_eval(torch, dev, card: str = "", tiny: bool = False,
             fcfg.TPU.IMAGE_BUCKETS = [(64, 96), (96, 64)]
         fmodel = init_params(build_model(fcfg, tiny=tiny, device=dev), seed=0)
         first = next(iter(TestLoader(roidb[:1], fcfg, **kw)))
-        calibrate_heads(torch, fmodel, build_predict_fn(fmodel, fcfg),
+        calibrate_heads(fmodel, build_predict_fn(fmodel, fcfg),
                         first[1], first[2])
         torch.cuda.synchronize()
         pkl = "minival2014_rpn.pkl"
@@ -3366,10 +3323,330 @@ def run_reference(torch, dev, card: str = "", tiny: bool = False):
     return launches, per
 
 
+# --------------------------------------------------------------------------
+# phase 16: the production-shape gate, and every cut of the train steps
+# --------------------------------------------------------------------------
+
+def run_gate(torch, dev, card: str = "", tiny: bool = False):
+    """The production-shape gate (relation_tpu_torch/tools/flagship_golden.py)
+    on init_params (seed 0) weights with the four prediction layers scaled
+    by the factors of tests/golden/flagship_port.npz on the host, two
+    requests through entry() at 608x1024 on the kernels: (1) in f32, its
+    detections held against the JAX package's in that file in the bands of
+    tools/flagship_golden.py (IoU >= 0.95, |score delta| <= 2e-2, the mean
+    top-50 score within 5e-3, the count within max(2, 5%)), the NMS, the
+    geometric bias and the learned-NMS attention launched; (2) in the
+    flagship's own configuration (bf16 trunk), its head feature at
+    trunk_sample's rows and columns within TRUNK_RTOL of the JAX package's
+    bf16 one, the stem kernel launched. ``tiny`` (a rehearsal): the tiny
+    trunk on a 64x128 image with factors calibrated on it, no golden to hold
+    it to. Returns the launch counts of both requests."""
+    from relation_tpu_torch.tools import flagship_golden as gate
+    from relation_tpu_torch.tools.calibrate import calibrate_heads
+    tag = "[gate]"
+    with np.load(gate.GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    size = (64, 128) if tiny else (608, 1024)
+    if tiny:
+        from relation_tpu_torch.convert import init_params
+        from relation_tpu_torch.core.predictor import build_predict_fn
+        from relation_tpu_torch.core.trainer import build_model
+        cfg = gate.gate_cfg(tiny=True)
+        model = init_params(build_model(cfg, tiny=True, device=dev), gate.SEED)
+        gold["factors"] = calibrate_heads(
+            model, build_predict_fn(model, cfg),
+            torch.tensor(gate.gate_image(size), device=dev),
+            torch.tensor(gate.IM_INFO, device=dev))
+    zero_counters()
+    t0 = time.perf_counter()
+    new = gate.port_dets(gold["factors"], device=dev, tiny=tiny, size=size)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    used = {k: v for k, v in launches.items() if v}
+    log(f"{tag} flagship at {size[0]}x{size[1]} in f32 through entry(), "
+        f"factors {gold['factors'].tolist()}: {len(new)} detections, "
+        f"{ms:.1f} ms with the model's build; launches {used}; on {card}")
+    if not len(new) or not np.isfinite(new).all():
+        fail(f"{tag} no or non-finite detections")
+    attention = (launches["fused_nms_relation_attention_skip"]
+                 + launches["fused_bias_attention"])
+    idle = [k for k in ("nms_keep_sorted", "geom_bias") if not launches[k]]
+    if not attention:
+        idle.append("the learned-NMS attention")
+    if idle:
+        fail(f"{tag} the request launched none of {idle}")
+    zero_counters()
+    t0 = time.perf_counter()
+    trunk = gate.port_trunk(gold["factors"], device=dev, tiny=tiny, size=size)
+    ms = (time.perf_counter() - t0) * 1e3
+    bf16 = read_launches()
+    log(f"{tag} flagship in its own configuration (bf16 trunk): head feature "
+        f"sample {trunk.shape}, mean |x| {np.abs(trunk).mean():.4f}, {ms:.1f} "
+        f"ms with the model's build; launches "
+        f"{ {k: v for k, v in bf16.items() if v} }")
+    if not np.isfinite(trunk).all():
+        fail(f"{tag} non-finite bf16 trunk feature")
+    if not tiny and not bf16["stem_conv1_bn_relu"]:
+        fail(f"{tag} the bf16 request launched no stem kernel")
+    for k, v in bf16.items():
+        launches[k] = launches.get(k, 0) + v
+    if tiny:
+        log(f"{tag} rehearsal: the golden is for 608x1024, no comparison")
+        return launches
+    errs, margins = gate.compare(new, gold["dets"], int(gold["n_dets"]),
+                                 float(gold["mean_top50"]))
+    trunk_errs, rel = gate.hold_trunk(trunk, gold["trunk_bf16"])
+    log(f"{tag} against tests/golden/flagship_port.npz (the JAX package's "
+        f"answer, {int(gold['n_dets'])} detections, mean top-{TOP_K} "
+        f"{float(gold['mean_top50']):.6f}): {len(errs)} misses; worst IoU "
+        f"{margins['worst_iou']:.6f}, worst |score delta| "
+        f"{margins['worst_dscore']:.3e}, mean top-{TOP_K} "
+        f"{margins['mean_top50']:.6f}; bf16 head feature {rel:.4e} from "
+        f"JAX's (mean |delta| / mean |x|, band {gate.TRUNK_RTOL:g})")
+    if errs or trunk_errs:
+        for e in (errs + trunk_errs)[:20]:
+            log(f"  {e}")
+        fail(f"{tag} the port leaves the gate's bands")
+    return launches
+
+
+# the parameter groups of a model (by the first component of a name) and
+# the groups each cut's graph reaches
+GROUPS = {"c4": "trunk", "c5": "res5", "conv_new_1": "res5", "neck": "neck",
+          "rpn": "rpn", "fc_new_1": "head", "fc_new_2": "head",
+          "roi_pool_fc1": "head", "roi_pool_fc2": "head", "relation_1": "head",
+          "relation_2": "head", "cls_score": "head", "bbox_pred": "head",
+          "offset": "head"}
+LNMS_GROUPS = {"nms_rank": "lnms_embed", "roi_feat_embedding": "lnms_embed",
+               "NMSRelationModule_0": "lnms_attn", "nms_logit": "lnms_logit"}
+
+
+def param_group(name: str) -> str:
+    parts = name.split(".")
+    if parts[0] == "learn_nms_head":
+        return LNMS_GROUPS[parts[1]]
+    return GROUPS[parts[0]]
+
+
+def reached_groups(cut: str, rcnn: bool) -> set:
+    """The groups whose trainable leaves the cut's loss reaches."""
+    if rcnn:
+        trunk = {"trunk", "res5", "neck"}
+        return {"trunk": trunk, "sample": set(), "pool": trunk,
+                "head": trunk | {"head"},
+                "": trunk | {"head", "lnms_embed", "lnms_attn",
+                             "lnms_logit"}}[cut]
+    from relation_tpu_torch.core.trainer import STOP_AFTER
+    order = STOP_AFTER + ("",)
+    i = order.index(cut)
+    out = {"trunk", "rpn"}
+    for stage, groups in (("feat", {"res5"}), ("head", {"head"}),
+                          ("lnms_embed", {"lnms_embed"}),
+                          ("lnms_attn", {"lnms_attn"}),
+                          ("lnms_score", {"lnms_logit"})):
+        if i >= order.index(stage):
+            out |= groups
+    return out
+
+
+def cut_step(torch, dev, model, cfg, start, make, batch, cut, label, tag,
+             rcnn: bool, tiny: bool):
+    """One step of one cut from the weights ``start`` without weight decay:
+    finite metrics, a pure tap's loss at most 1e-20, autograd's gradients
+    delivered to exactly the groups the cut reaches, every leaf it does not
+    reach bit-equal after the step. Returns (metrics, launches, host ms,
+    device ms, the learned-NMS leaves' largest |gradient|)."""
+    from relation_tpu_torch.core.trainer import create_train_state
+    model.load_state_dict(start)
+    state = create_train_state(model, cfg, seed=0)
+    trainable = [n for n, on in state.tx.mask.items() if on]
+    present = {param_group(n) for n in trainable}
+    delivered = set()
+    params = dict(model.named_parameters())
+    hooks = [params[n].register_post_accumulate_grad_hook(
+        lambda _p, n=n: delivered.add(n)) for n in trainable]
+    step = make(cut)
+    zero_counters()
+    cuda = dev.type == "cuda"
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        if cuda:
+            e1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = e0.elapsed_time(e1) if cuda else float("nan")
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = read_launches()
+    m = {k: float(v) for k, v in m.items()}
+    bad = [k for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"{tag} {label}: non-finite metrics {bad}")
+    if rcnn and cut in ("trunk", "sample", "pool") and not (
+            abs(m["total_loss"]) <= 1e-20):
+        fail(f"{tag} {label}: total_loss {m['total_loss']} of a 1e-30 tap")
+    want = reached_groups(cut, rcnn) & present
+    got = {param_group(n) for n in delivered}
+    if got != want:
+        fail(f"{tag} {label}: gradients reached {sorted(got)}, the cut reaches "
+             f"{sorted(want)}")
+    end = model.state_dict()
+    moved = [n for n in trainable if n not in delivered
+             and not torch.equal(end[n], start[n])]
+    if moved:
+        fail(f"{tag} {label}: leaves the cut does not reach moved: {moved[:5]}")
+    lnms_grad = max((float(state.trace[n].abs().max()) for n in delivered
+                     if n.startswith("learn_nms_head.")), default=0.0)
+    return m, launches, host_ms, dev_ms, lnms_grad
+
+
+def run_cuts(torch, dev, card: str = "", tiny: bool = False):
+    """Every stop_after cut once on the card at full width, B=2, with the
+    cfg edits of tools/train_cuts.py (lr 1e-5, no warm-up, TPU.GRAD_CLIP 1)
+    and no weight decay, each step from the same weights (cut_step's
+    checks): (a) the flagship end-to-end step's eleven cuts and the full
+    step, and lnms_attn again with the fully fused attention; the launch
+    counters show no geometric bias or attention before 'head', only the
+    relation modules' (C=1) at 'head' and lnms_embed, rows 1, 2 and 7 at
+    the learned-NMS branch's C=80 from lnms_attn on (row 6 under
+    fully_fused); (b) the fpn_learn_nms RCNN step on 1000 cached ROIs
+    (TOP_ROIS; calibrated prediction layers): 'trunk', 'sample', 'pool',
+    'head' and the full step; the pure taps' losses at most 1e-20, the
+    learned-NMS branch's kernels only in the full step. Prints each cut's
+    ms on the host clock and by CUDA events (one step, a first call of the
+    cut). ``tiny``: the tiny trunk and proposal counts on 64x128 images.
+    Returns the launch counts summed over the cuts."""
+    from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import build_predict_fn
+    from relation_tpu_torch.core.rpn_workflow import (STOP_AFTER_RCNN,
+                                                      make_train_step_rcnn)
+    from relation_tpu_torch.core.trainer import (STOP_AFTER, build_model,
+                                                 make_train_step)
+    from relation_tpu_torch.tools.calibrate import calibrate_heads
+    from relation_tpu_torch.tools.train_cuts import (R_CACHED, family_config,
+                                                     make_batch)
+    size = (64, 128) if tiny else (608, 1024)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def c80(launches, name):
+        return sum(v for k, v in launches.items()
+                   if k.startswith(name + "@C=80"))
+
+    attention = ("fused_nms_relation_attention", "fused_nms_relation_attention_skip",
+                 "fused_bias_attention", "fused_bias_attention_skip")
+    # (a) the flagship's end-to-end step
+    tag = "[cuts flagship]"
+    cfg = family_config("flagship", tiny=tiny)
+    cfg.TRAIN.wd = 0.0
+    model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = training_batch(*size)
+    nms_mod = model.learn_nms_head.NMSRelationModule_0
+    legs = [(c, c or "full", False) for c in STOP_AFTER + ("",)]
+    legs.insert(STOP_AFTER.index("lnms_attn") + 1,
+                ("lnms_attn", "lnms_attn fully_fused", True))
+    rows = []
+    for cut, label, fused in legs:
+        nms_mod.fully_fused = fused
+        m, launches, host_ms, dev_ms, lnms_grad = cut_step(
+            torch, dev, model, cfg, start,
+            lambda c: make_train_step(model, cfg, stop_after=c, device=dev),
+            batch, cut, label, tag, rcnn=False, tiny=tiny)
+        add(launches)
+        i = (STOP_AFTER + ("",)).index(cut)
+        rows.append((label, host_ms, dev_ms))
+        geom, attn = launches["geom_bias"], sum(launches[k] for k in attention)
+        errs = []
+        if i < STOP_AFTER.index("head") and (geom or launches["geom_bias_bwd"]
+                                             or attn):
+            errs.append("a geometric bias or an attention before 'head'")
+        if i >= STOP_AFTER.index("head") and not (geom and launches["geom_bias_bwd"]):
+            errs.append("no geometric bias (rows 1, 2) in the head")
+        if i <= STOP_AFTER.index("lnms_embed") and (c80(launches, "geom_bias")
+                                                    or attn):
+            errs.append("the learned-NMS attention ran")
+        if i >= STOP_AFTER.index("lnms_attn"):
+            want = (["fused_nms_relation_attention"] if fused else
+                    ["fused_bias_attention", "geom_bias@C=80", "geom_bias_bwd@C=80"])
+            short = [k for k in want if not (c80(launches, k.split("@")[0])
+                                             if "@" in k else launches[k])]
+            if short:
+                errs.append(f"the learned-NMS branch launched none of {short}")
+        if i >= STOP_AFTER.index("proposals") and not launches["nms_keep_sorted"]:
+            errs.append("no proposal NMS")
+        if not tiny and not launches["stem_conv1_bn_relu"]:
+            errs.append("no stem")
+        log(f"{tag} {label}: host {host_ms:.3f} ms, CUDA events (host-synced) "
+            f"{dev_ms:.3f} ms; "
+            f"total_loss {m['total_loss']:.6g}; learned-NMS leaves' largest "
+            f"|gradient| {lnms_grad:.3e}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if errs:
+            fail(f"{tag} {label}: {'; '.join(errs)}")
+    nms_mod.fully_fused = False
+    del model, start
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (b) the fpn_learn_nms RCNN step on cached ROIs
+    tag = "[cuts fpn rcnn]"
+    cfg = family_config("fpn", tiny=tiny)
+    cfg.TRAIN.wd = 0.0
+    model = init_params(build_model(cfg, tiny=tiny, device=dev), seed=0)
+    batch = make_batch(cfg, 2, size, fpn=True)
+    calibrate_heads(model, build_predict_fn(model, cfg),
+                    torch.tensor(batch["image"][0], device=dev),
+                    torch.tensor(batch["im_info"][0], device=dev))
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    R = batch["rois"].shape[1]
+    for cut in STOP_AFTER_RCNN + ("",):
+        label = cut or "full"
+        m, launches, host_ms, dev_ms, _ = cut_step(
+            torch, dev, model, cfg, start,
+            lambda c: make_train_step_rcnn(model, cfg, max_rois=R_CACHED,
+                                           max_gt=batch["gt_boxes"].shape[1],
+                                           stop_after=c, device=dev),
+            batch, cut, label, tag, rcnn=True, tiny=tiny)
+        add(launches)
+        rows.append((f"fpn rcnn {label}", host_ms, dev_ms))
+        geom, attn = launches["geom_bias"], sum(launches[k] for k in attention)
+        errs = []
+        if cut in ("trunk", "sample", "pool") and (geom or attn):
+            errs.append("a geometric bias or an attention before 'head'")
+        if cut in ("head", "") and not (geom and launches["geom_bias_bwd"]):
+            errs.append("no geometric bias (rows 1, 2) in the head")
+        if (cut == "") != bool(c80(launches, "geom_bias")
+                               and launches["fused_bias_attention"]):
+            errs.append("the learned-NMS branch ran "
+                        + ("nowhere" if cut == "" else "before the full step"))
+        log(f"{tag} {label}, R={R}: host {host_ms:.3f} ms, CUDA events "
+            f"(host-synced) {dev_ms:.3f} ms; total_loss {m['total_loss']:.6g}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if errs:
+            fail(f"{tag} {label}: {'; '.join(errs)}")
+    del model, start
+    log("[cuts] ms of one step (a first call of each cut), host clock / CUDA "
+        f"events (host-synced: no device time), B=2, on {card}: " + "; ".join(
+            f"{label} {h:.3f} / {d:.3f}" for label, h, d in rows))
+    return total
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=["all", "kernels", "dcn", "trunk", "fpn",
-                                        "workflow", "eval", "dp", "reference"],
+                                        "workflow", "eval", "dp", "reference",
+                                        "cuts"],
                     default="all")
     args = ap.parse_args()
     try:
@@ -3471,9 +3748,14 @@ def main() -> None:
             "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
             "fused_bias_attention", "fused_nms_relation_attention_skip",
             "roi_pool")}
+    if args.phase == "cuts":
+        checks = {k: checks[k] for k in (
+            "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",
+            "fused_bias_attention", "fused_nms_relation_attention_skip",
+            "fused_nms_relation_attention")}
     nms_ran = (nms_kernels_a_call(torch, dev)
                if args.phase in ("all", "kernels", "dcn", "workflow", "eval",
-                                 "dp", "reference")
+                                 "dp", "reference", "cuts")
                else {})
     results = {name: fn(torch, dev, r) for name, (_, _, fn, r) in checks.items()}
     if args.phase in ("all", "kernels", "dcn"):
@@ -3531,6 +3813,16 @@ def main() -> None:
         log(f"[done] {args.phase} phase only: launches {launches}; no device "
             "line")
         return
+
+    def cuts_phase():
+        add(run_gate(torch, dev, card))
+        torch.cuda.empty_cache()
+        add(run_cuts(torch, dev, card))
+        torch.cuda.empty_cache()
+    if args.phase == "cuts":
+        cuts_phase()
+        log(f"[done] cuts phase only: launches {launches}; no device line")
+        return
     if args.phase == "all":
         flagship_launches, ms_image = run_flagship(torch, dev)
         add(flagship_launches)
@@ -3565,6 +3857,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     dp_phase()
     reference_phase()
+    cuts_phase()
     for name in SHAPES:
         split = {k.split("@", 1)[1]: v for k, v in launches.items()
                  if k.startswith(name + "@")}

@@ -267,6 +267,9 @@ def load_proposal_roidb(roidb, proposal_file: str, top_rois: int = -1) -> list:
     return out
 
 
+STOP_AFTER_RCNN = ("trunk", "sample", "pool", "head")
+
+
 def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                          bbox_means=None, bbox_stds=None,
                          train_shared: bool = False, fixed_prefixes=None,
@@ -291,15 +294,22 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
     (core/trainer.py::refreeze_state). ``bbox_means`` / ``bbox_stds`` (4
     each) replace TRAIN.BBOX_MEANS/STDS, for statistics from
     ``add_bbox_regression_stats``. ``max_gt`` is accepted for the JAX
-    signature. ``stop_after`` (the benchmarking cuts) raises."""
+    signature.
+
+    ``stop_after`` is one of the JAX step's benchmarking cuts
+    (STOP_AFTER_RCNN, tools/train_cuts.py): the image's graph stops after
+    'trunk' (1e-30 x the sum of its feature maps), 'sample' (1e-30 x the
+    sampled rois, bbox targets and labels), 'pool' (1e-30 x the pooled ROI
+    features) or 'head' (the RCNN losses without the learned-NMS branch),
+    and the step trains on that loss, with total_loss its only metric but
+    after 'head'; "" is the full step. The sampler draws as in the full
+    step up to the cut."""
     from relation_tpu_torch.core.trainer import (head_losses_fn, run_step,
                                                  step_device, trainable_mask)
     from relation_tpu_torch.models.targets import sample_rois
 
-    if stop_after:
-        raise NotImplementedError(
-            f"stop_after={stop_after!r}: the benchmarking cuts of the JAX "
-            "RCNN step are not ported")
+    if stop_after and stop_after not in STOP_AFTER_RCNN:
+        raise ValueError(f"stop_after={stop_after!r}: one of {STOP_AFTER_RCNN}")
     device = step_device(model, cfg, device, "make_train_step_rcnn")
     batch_rois = int(cfg.TRAIN.BATCH_ROIS)
     if bool(cfg.TRAIN.LEARN_NMS) and batch_rois >= 0:
@@ -315,9 +325,14 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
         fixed_prefixes = (cfg.network.FIXED_PARAMS_SHARED if train_shared
                           else cfg.network.FIXED_PARAMS)
     step_mask = trainable_mask(model, tuple(fixed_prefixes))
-    head_losses = head_losses_fn(model, cfg)
+    head_losses = head_losses_fn(model, cfg, stop_after=stop_after)
 
     def per_image(feat, _rpn, ins, generator, prio):
+        if stop_after == "trunk":
+            # the image's feature maps (every level of an FPN), no head
+            levels = feat.values() if isinstance(feat, dict) else (feat,)
+            total = 1e-30 * sum(torch.sum(f.float()) for f in levels)
+            return total, {"total_loss": total}
         with torch.no_grad():
             tgt = sample_rois(
                 ins["rois"], ins["rois_valid"], ins["gt_boxes"], ins["gt_valid"],
@@ -329,6 +344,14 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                 bbox_normalize=True, bbox_means=means, bbox_stds=stds,
                 bbox_weights=tuple(np.asarray(cfg.TRAIN.BBOX_WEIGHTS).tolist()),
                 priorities=None if prio is None else prio.get("sample"))
+        if stop_after == "sample":
+            total = 1e-30 * (torch.sum(tgt["rois"]) + torch.sum(tgt["bbox_target"])
+                             + torch.sum(tgt["label"].float()))
+            return total, {"total_loss": total}
+        if stop_after == "pool":
+            flat = model.head(feat, tgt["rois"], nongt_dim, pool_only=True)
+            total = 1e-30 * torch.sum(flat)
+            return total, {"total_loss": total}
         parts, metrics = head_losses(feat, tgt, nongt_dim, ins["im_info"],
                                      ins["gt_boxes"], ins["gt_valid"])
         total = parts[0]
@@ -343,7 +366,8 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                              f"max_rois {max_rois}")
         return run_step(model, state, batch, priorities, per_image,
                         step_mask=step_mask, no_grad=no_grad, device=device,
-                        pixel_means=cfg.network.PIXEL_MEANS)
+                        pixel_means=cfg.network.PIXEL_MEANS,
+                        reaches_params=stop_after != "sample")
 
     return train_step
 

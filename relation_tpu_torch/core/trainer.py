@@ -281,7 +281,9 @@ def refreeze_state(state: TrainState, cfg, fixed_prefixes,
 
 
 STOP_AFTER = ("rpn", "anchor_targets", "proposals", "sample", "feat", "pool",
-              "head", "lnms_score", "lnms_target")
+              "head", "lnms_embed", "lnms_attn", "lnms_score", "lnms_target")
+# the learned-NMS head's probe (LearnNMSHead.forward) of each cut inside it
+LNMS_PROBES = {"lnms_embed": "embed", "lnms_attn": "attn"}
 
 
 def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
@@ -325,16 +327,17 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     ``fixed_prefixes`` overrides cfg.network.FIXED_PARAMS for the set of
     parameters that take no gradient. ``no_grad`` gives the forward-only step
     (metrics, parameters untouched). ``stop_after`` is one of the JAX
-    package's benchmarking cuts (STOP_AFTER): the image's graph stops after
-    that stage and the step trains on the partial loss, with the JAX cut's
-    metrics ('rpn' to 'pool': total_loss only; 'head': the head's losses
-    without the learned-NMS branch; 'lnms_score' / 'lnms_target': the
-    branch's four metrics equal to its 1e-30 term); "" is the full step.
+    package's benchmarking cuts (STOP_AFTER, tools/train_cuts.py): the
+    image's graph stops after that stage and the step trains on the partial
+    loss, with the JAX cut's metrics ('rpn' to 'pool': total_loss only;
+    'head': the head's losses without the learned-NMS branch; 'lnms_embed'
+    / 'lnms_attn': the branch cut inside the head by its probe,
+    'lnms_score' / 'lnms_target' after its scores or its targets, each with
+    the branch's four metrics equal to its 1e-30 term); "" is the full
+    step.
     """
     if stop_after and stop_after not in STOP_AFTER:
-        raise ValueError(f"stop_after={stop_after!r}: one of {STOP_AFTER} "
-                         "(the JAX step's lnms_embed / lnms_attn probes are "
-                         "not ported)")
+        raise ValueError(f"stop_after={stop_after!r}: one of {STOP_AFTER}")
     device = step_device(model, cfg, device, "make_train_step")
     is_fpn = isinstance(model, RelationRCNNFPN)
     stride = int(cfg.network.RPN_FEAT_STRIDE)
@@ -544,7 +547,9 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     threshold 0 on the first ``nongt_dim`` ROIs (recomputed in the backward
     under TPU.LNMS_REMAT). ``parts`` are the losses to add to the total, in
     the order the JAX package adds them. ``stop_after`` 'head' leaves the
-    branch out; 'lnms_score' and 'lnms_target' cut it (make_train_step)."""
+    branch out; 'lnms_embed' and 'lnms_attn' cut it inside the head (its
+    probes, run inside the recomputed branch under TPU.LNMS_REMAT),
+    'lnms_score' and 'lnms_target' after it (make_train_step)."""
     threshes = tuple(np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float,
                                    sep=","))
     ohem = bool(cfg.TRAIN.ENABLE_OHEM)
@@ -557,8 +562,9 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     def lnms_branch(cls_score, bbox_pred, rois, fc2, im_info, gt_boxes,
                     gt_valid):
         """(total, pos loss, neg loss, pos accuracy, neg accuracy)."""
-        ln = model.learn_nms(cls_score, bbox_pred, rois, fc2, im_info)
-        if stop_after == "lnms_score":
+        ln = model.learn_nms(cls_score, bbox_pred, rois, fc2, im_info,
+                             probe=LNMS_PROBES.get(stop_after, ""))
+        if stop_after in ("lnms_embed", "lnms_attn", "lnms_score"):
             t = 1e-30 * (torch.sum(ln["nms_multi_score"])
                          + torch.sum(ln["sorted_bbox"]))
             return t, t, t, t, t
@@ -607,7 +613,7 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
 
 def run_step(model, state: TrainState, batch, priorities, per_image, *,
              step_mask: dict, no_grad: bool, device, pixel_means, mesh=None,
-             draw=None):
+             draw=None, reaches_params: bool = True):
     """One step over a batch: the batch to ``device`` (uint8 images
     mean-subtracted there), the conv trunk and RPN batched, ``per_image(feat,
     rpn, inputs, generator, prio) -> (total, metrics)`` for each image
@@ -619,7 +625,11 @@ def run_step(model, state: TrainState, batch, priorities, per_image, *,
     leaves (zeros where a leaf got none) and the metrics are averaged over
     the ranks before the update, and ``draw(rpn, n_images, n_gt,
     generator)`` gives the global batch's priorities when the caller gave
-    none; this rank keeps its share."""
+    none; this rank keeps its share. ``reaches_params`` False (a cut whose
+    loss reaches no parameter: the RCNN step's 'sample') skips the backward
+    and leaves every gradient at zero, as JAX's is, and so does a
+    ``step_mask`` that trains no leaf (tools/train_cuts.py's f_all leg);
+    otherwise a loss without a graph raises."""
     from relation_tpu_torch.core.predictor import _image_from_u8
     from relation_tpu_torch.parallel.mesh import all_reduce_mean
     if state.model is not model:
@@ -670,7 +680,8 @@ def run_step(model, state: TrainState, batch, priorities, per_image, *,
         if not no_grad:
             for p in model.parameters():
                 p.grad = None
-            loss.backward()
+            if reaches_params and any(step_mask.values()):
+                loss.backward()
             if dp:
                 grads = []
                 for n, p in model.named_parameters():

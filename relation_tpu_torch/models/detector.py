@@ -138,9 +138,9 @@ class RelationRCNN(nn.Module):
         return self.cls_score(fc2), self.bbox_pred(fc2), fc2
 
     def learn_nms(self, cls_score, bbox_pred, rois, roi_feat, im_info,
-                  class_thresh: float = 0.0):
+                  class_thresh: float = 0.0, probe: str = ""):
         return self.learn_nms_head(cls_score, bbox_pred, rois, roi_feat,
-                                   im_info, class_thresh)
+                                   im_info, class_thresh, probe=probe)
 
 
 class _TinyTrunk(nn.Module):

@@ -250,11 +250,13 @@ class RelationRCNNFPN(nn.Module):
         return self.cls_score(fc2), self.bbox_pred(fc2), fc2
 
     def learn_nms(self, cls_score, bbox_pred, rois, roi_feat, im_info,
-                  class_thresh: float = 0.0, allow_pallas: bool | None = None):
+                  class_thresh: float = 0.0, allow_pallas: bool | None = None,
+                  probe: str = ""):
         """The learned-NMS head; ``allow_pallas`` overrides the attention
-        branch of this call (the split predict functions' tail)."""
+        branch of this call (the split predict functions' tail), ``probe``
+        cuts it (LearnNMSHead.forward)."""
         return self.learn_nms_head(cls_score, bbox_pred, rois, roi_feat,
-                                   im_info, class_thresh, allow_pallas)
+                                   im_info, class_thresh, allow_pallas, probe)
 
 
 def fpn_anchors(feat_shapes: dict, scales, ratios, device=None):

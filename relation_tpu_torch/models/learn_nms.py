@@ -25,9 +25,11 @@ from relation_tpu_torch.ops.embeddings import (extract_multi_position_matrix_t,
 
 class LearnNMSHead(nn.Module):
     """forward(cls_score [N, K], bbox_pred [N, 4*num_reg], rois [N, 4],
-    roi_feat [N, D], im_info [3], class_thresh, allow_pallas) -> dict with
-    nms_multi_score [F, C, T], sorted_bbox [F, C, 4], sorted_score [F, C],
-    nms_conditional_score [F, C, T] (F = first_n, C = fg classes)."""
+    roi_feat [N, D], im_info [3], class_thresh, allow_pallas, probe) -> dict
+    with nms_multi_score [F, C, T], sorted_bbox [F, C, 4], sorted_score
+    [F, C], nms_conditional_score [F, C, T] (F = first_n, C = fg classes)."""
+
+    PROBES = ("", "embed", "attn")
 
     def __init__(self, num_fg_classes: int, first_n: int, num_thresh: int,
                  roi_feat_dim: int, class_agnostic: bool = True,
@@ -45,11 +47,20 @@ class LearnNMSHead(nn.Module):
             dtype=attn_dtype, allow_pallas=allow_pallas,
             compact_classes=compact_classes)
         self.nms_logit = Dense(128, num_thresh)
+        self.num_thresh = num_thresh
 
     def forward(self, cls_score, bbox_pred, rois, roi_feat, im_info,
-                class_thresh: float = 0.0, allow_pallas: bool | None = None):
+                class_thresh: float = 0.0, allow_pallas: bool | None = None,
+                probe: str = ""):
         """``allow_pallas`` overrides the attention's branch for this call
-        (NMSRelationModule)."""
+        (NMSRelationModule). ``probe`` is a benchmarking cut inside the head
+        (the train step's lnms_embed / lnms_attn): 'embed' stops after the
+        rank and ROI embeddings and the position matrix, 'attn' after
+        relu(embedding + attention); both return the same dict, with the
+        conditional score z = zeros [F, C, T] + 1e-30 x the sum of the cut
+        point's tensors and nms_multi_score = sorted_score + z."""
+        if probe not in self.PROBES:
+            raise ValueError(f"probe={probe!r}: one of {self.PROBES}")
         C, F_ = self.num_fg_classes, self.first_n
         refined = refine_bbox(rois, bbox_pred.detach()[:, 4:],
                               im_hw=(im_info[0], im_info[1]),
@@ -70,6 +81,10 @@ class LearnNMSHead(nn.Module):
         pos_t = extract_multi_position_matrix_t(sorted_bbox)      # [C,4,F,F]
         roi_emb = self.roi_feat_embedding(roi_feat).float()       # [N, 128]
         emb = take_rows(roi_emb, rank_idx) + rank_feat[:, None, :]  # [F, C, 128]
+        if probe == "embed":
+            return self._probe_out(
+                sorted_score, sorted_bbox,
+                1e-30 * (torch.sum(emb) + torch.sum(pos_t)))
 
         # inference valid-class filter (reference learn_nms.py:296-309)
         active = None
@@ -82,6 +97,9 @@ class LearnNMSHead(nn.Module):
             emb, pos_t, None if active is None else active.to(torch.int32),
             allow_pallas)
         feat = torch.relu(emb + attention)
+        if probe == "attn":
+            return self._probe_out(sorted_score, sorted_bbox,
+                                   1e-30 * torch.sum(feat))
         conditional = torch.sigmoid(self.nms_logit(feat))         # [F, C, T]
         if active is not None:
             # where(), not multiply: skipped classes' rows are unwritten
@@ -91,6 +109,14 @@ class LearnNMSHead(nn.Module):
         return {"nms_multi_score": sorted_score[..., None] * conditional,
                 "sorted_bbox": sorted_bbox, "sorted_score": sorted_score,
                 "nms_conditional_score": conditional}
+
+    def _probe_out(self, sorted_score, sorted_bbox, tap):
+        """The head's dict at a probe: the uncut tail replaced by ``tap``,
+        the 1e-30 projection of the cut point."""
+        z = sorted_score.new_zeros(sorted_score.shape + (self.num_thresh,)) + tap
+        return {"nms_multi_score": sorted_score[..., None] + z,
+                "sorted_bbox": sorted_bbox, "sorted_score": sorted_score,
+                "nms_conditional_score": z}
 
 
 def merge_multi_score(nms_multi_score: torch.Tensor, merge_method: int):

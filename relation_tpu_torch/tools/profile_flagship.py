@@ -7,9 +7,10 @@ step) goes, on one CUDA card.
 Builds one family of relation_tpu_torch/entry.py::FAMILIES (the flagship,
 dcn, dcn_relation, dcn_learn_nms, fpn, fpn_relation or fpn_learn_nms;
 weights from init_params(seed=0), a DCN family's offset branches seeded away
-from zero and an FPN family's prediction layers calibrated, as chip_smoke.py
-does) on cuda:0, serves it through core/predictor.py::build_predict_fn (the
-split form for fpn_learn_nms), warms up, then:
+from zero and an FPN family's prediction layers calibrated, by
+tools/calibrate.py) on cuda:0, serves it through
+core/predictor.py::build_predict_fn (the split form for fpn_learn_nms),
+warms up, then:
 
 1. stage split: host clock with torch.cuda.synchronize() around each stage
    of one seeded 608x1024 request, median over --requests: for a C4 family
@@ -37,7 +38,7 @@ share, the operations ranked by device time and by host time, and the
 indexing operations (index_put and the like, forward and backward).
 
 Prints the card's name and power limit first. Needs a CUDA card and
-chip_smoke.py beside the package (its seeding and timing helpers).
+chip_smoke.py beside the package (its batches and timing helpers).
 """
 
 from __future__ import annotations
@@ -122,7 +123,8 @@ def report(torch, prof, wall_us: float, n: int, unit: str) -> None:
 
 
 def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
-    from chip_smoke import calibrate_heads, seed_offsets, training_batch
+    from chip_smoke import training_batch
+    from relation_tpu_torch.tools.calibrate import calibrate_heads, seed_offsets
     from relation_tpu_torch.convert import init_params
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
@@ -134,11 +136,11 @@ def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
     batch = training_batch(*BUCKET)
     model = init_params(build_model(cfg, device=dev), seed=0)
     if family.startswith("fpn"):
-        calibrate_heads(torch, model, build_predict_fn(model, cfg),
+        calibrate_heads(model, build_predict_fn(model, cfg),
                         torch.tensor(batch["image"][0], device=dev),
                         torch.tensor(batch["im_info"][0], device=dev))
     elif model.dcn:
-        seed_offsets(torch, model, cfg, batch["image"][0], batch["im_info"][0])
+        seed_offsets(model, cfg, batch["image"][0], batch["im_info"][0])
     state = create_train_state(model, cfg, seed=0)
     step = make_train_step(model, cfg, device=dev)
     for _ in range(2):
@@ -232,7 +234,8 @@ def main():
         sys.exit("needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-    from chip_smoke import calibrate_heads, seed_offsets, time_ms
+    from chip_smoke import time_ms
+    from relation_tpu_torch.tools.calibrate import calibrate_heads, seed_offsets
     from relation_tpu_torch.convert import init_params
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import build_model
@@ -261,9 +264,9 @@ def main():
     fpn = isinstance(model, RelationRCNNFPN)
     predict = build_predict_fn(model, cfg)
     if fpn:
-        calibrate_heads(torch, model, predict, image, im_info)
+        calibrate_heads(model, predict, image, im_info)
     elif model.dcn:
-        seed_offsets(torch, model, cfg, image, im_info)
+        seed_offsets(model, cfg, image, im_info)
     net, test = cfg.network, cfg.TEST
     stride = int(net.RPN_FEAT_STRIDE)
     ratios, scales = tuple(net.ANCHOR_RATIOS), tuple(net.ANCHOR_SCALES)

@@ -1,6 +1,6 @@
 """Rehearse chip_smoke.py's end-to-end phases on the CPU, at the tiny size.
 
-    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow|eval|dp|reference]
+    python3 -m relation_tpu_torch.tools.rehearse_smoke [--phase workflow|eval|dp|reference|cuts]
 
 A CUDA kernel cannot run without a card, so this is no check of the kernels:
 it finds wrong paths, arguments, shapes and control flow in chip_smoke.py
@@ -20,8 +20,11 @@ FPN ``run_training`` of the three families with ``tiny=True``, then
 images; ``--phase eval`` rehearses it alone, ``--no-pil`` takes its route
 for a machine without PIL), then ``run_dp`` (phase 14: two gloo ranks
 spawned on the CPU, where they run the plain versions; ``--phase dp``) and
-``run_reference`` (phase 15 with the tiny trunk; ``--phase reference``). It
-prints what the script prints; its times are CPU times and mean nothing.
+``run_reference`` (phase 15 with the tiny trunk; ``--phase reference``),
+then ``run_gate`` and ``run_cuts`` (phase 16 with the tiny trunk on 64x128
+images: the gate's two requests, f32 and bf16 trunk, without its golden,
+which is for 608x1024, and every cut of both steps; ``--phase cuts``). It prints what the script
+prints; its times are CPU times and mean nothing.
 """
 
 from __future__ import annotations
@@ -123,7 +126,7 @@ def main() -> None:
     import chip_smoke
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=["all", "workflow", "eval", "dp",
-                                        "reference"],
+                                        "reference", "cuts"],
                     default="all")
     ap.add_argument("--no-pil", action="store_true",
                     help="phase 13 as on a machine without PIL")
@@ -148,6 +151,11 @@ def main() -> None:
         chip_smoke.run_reference(torch, cpu, card=card, tiny=True)
         print("rehearsal done: control flow only, no kernel ran")
         return
+    if args.phase == "cuts":
+        chip_smoke.run_gate(torch, cpu, card=card, tiny=True)
+        chip_smoke.run_cuts(torch, cpu, card=card, tiny=True)
+        print("rehearsal done: control flow only, no kernel ran")
+        return
     chip_smoke.run_flagship(torch, cpu, tiny=True)
     chip_smoke.run_training(torch, cpu, card=card, tiny=True)
     chip_smoke.run_dcn_inference(torch, cpu, card=card, tiny=True)
@@ -165,6 +173,8 @@ def main() -> None:
                         use_pil=False if args.no_pil else None)
     chip_smoke.run_dp(torch, cpu, card=card, tiny=True)
     chip_smoke.run_reference(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_gate(torch, cpu, card=card, tiny=True)
+    chip_smoke.run_cuts(torch, cpu, card=card, tiny=True)
     print("rehearsal done: control flow only, no kernel ran")
 
 

@@ -46,6 +46,7 @@ def main() -> None:
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  make_train_step)
     from relation_tpu_torch.entry import BUCKET, family_cfg
+    from relation_tpu_torch.tools.calibrate import seed_offsets
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -63,8 +64,8 @@ def main() -> None:
         else:
             init_params(model, seed=0)
             if args.family.startswith("dcn"):
-                cs.seed_offsets(torch, model, cfg, batch["image"][0],
-                                batch["im_info"][0])
+                seed_offsets(model, cfg, batch["image"][0],
+                             batch["im_info"][0])
         return model, create_train_state(model, cfg, seed=0), \
             make_train_step(model, cfg, device=dev)
 

@@ -424,8 +424,8 @@ def test_learned_nms_on_zero_size_padded_rois_matches_jax():
 
 
 def test_rcnn_step_refuses_and_draws():
-    """The RCNN step defaults to the card (raises without one), refuses the
-    stop_after cuts, LEARN_NMS with sampled ROIs and more ROIs than
+    """The RCNN step defaults to the card (raises without one), refuses a
+    stop_after cut that the JAX RCNN step does not have, LEARN_NMS with sampled ROIs and more ROIs than
     max_rois; generator-drawn priorities repeat under one seed; no_grad
     leaves the parameters and the count alone."""
     from relation_tpu_torch.convert import init_params
@@ -437,8 +437,8 @@ def test_rcnn_step_refuses_and_draws():
             tw.make_train_step_rcnn(model, cfg, max_rois=20, max_gt=4)
         with pytest.raises(RuntimeError, match="cuda"):
             tw.make_train_step_rpn(model, cfg, max_gt=4)
-    with pytest.raises(NotImplementedError):
-        tw.make_train_step_rcnn(model, cfg, 20, 4, stop_after="pool",
+    with pytest.raises(ValueError, match="stop_after"):
+        tw.make_train_step_rcnn(model, cfg, 20, 4, stop_after="rpn",
                                 device="cpu")
     bad = cfg.copy()
     bad.TRAIN.BATCH_ROIS = 16

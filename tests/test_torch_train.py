@@ -700,7 +700,7 @@ def test_fully_fused_step_equals_the_dense_step(jax_step):
 def test_train_step_entry_points_refuse_and_repeat():
     """make_train_step defaults to the card and raises where there is none;
     an FPN symbol for a C4 model, a DCN symbol for a model built without the
-    DCN parts, a stop_after cut that is not ported (the learned-NMS probes)
+    DCN parts, a stop_after cut that the JAX step does not have
     and a learned-NMS config with sampled rois raise; a second step moves the parameters again and lowers
     nothing to NaN; no_grad leaves the parameters alone; generator-drawn
     priorities repeat under one seed; uint8 images take the device-side
@@ -714,7 +714,7 @@ def test_train_step_entry_points_refuse_and_repeat():
         with pytest.raises(RuntimeError, match="cuda"):
             make_train_step(model, cfg)
     with pytest.raises(ValueError, match="stop_after"):
-        make_train_step(model, cfg, stop_after="lnms_embed", device="cpu")
+        make_train_step(model, cfg, stop_after="lnms_logit", device="cpu")
     bad = cfg.copy()
     bad.TRAIN.BATCH_ROIS = 16
     with pytest.raises(ValueError, match="BATCH_ROIS"):

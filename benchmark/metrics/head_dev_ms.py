@@ -1,0 +1,10 @@
+"""head_dev_ms: device time per image of the kernels launched inside the span of
+the ROI head with its relation modules (head), in the traced window; the forward only."""
+
+
+def read(out):
+    t = out.get("trace")
+    dev = t["span_device_s"].get("pb:head", 0.0) if t else 0.0
+    if dev <= 0 or not t["images"]:
+        return None
+    return 1e3 * dev / t["images"]

@@ -1,0 +1,9 @@
+"""idle_proposals_ms: the device's idle time per image while the host was in
+the proposal stage (predict.proposals), in the traced window, from the
+program's stage spans (benchmark/harness/stages.py)."""
+
+from benchmark.harness.stages import per_image
+
+
+def read(out):
+    return per_image(out, "proposals", "idle_ms")

@@ -2988,7 +2988,7 @@ def run_eval(torch, dev, card: str = "", tiny: bool = False,
 # --------------------------------------------------------------------------
 
 def launches_of(counts: dict) -> dict:
-    """COUNTERS names (and "name@shape") of a parallel/launch.py::
+    """COUNTERS names (and "name@shape") of a utils/trace.py::
     kernel_launches() snapshot taken in another process."""
     out = {name: counts.get(f"{mod}.{attr}", 0)
            for name, (mod, attr) in COUNTERS.items()}

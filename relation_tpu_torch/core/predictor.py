@@ -28,6 +28,7 @@ from relation_tpu_torch.models.rpn import generate_proposals
 from relation_tpu_torch.ops.anchors import generate_anchors
 from relation_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from relation_tpu_torch.ops.nms import classwise_nms, soft_nms
+from relation_tpu_torch.utils import trace
 from relation_tpu_torch.utils.debug import tensor_stats
 
 _NEG_INF = -1e10
@@ -221,28 +222,38 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
         return classic_tail(cls_score, bbox_deltas, rois, roi_real, im_info)
 
     @torch.inference_mode()
+    @trace.span("predict", request=True)
     def predict(image, im_info, res4_folded=None):
-        image = torch.as_tensor(image, device=device)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
-        image = _image_from_u8(image, im_info, pixel_means)
+        with trace.span("predict.input"):
+            image = torch.as_tensor(image, device=device)
+            im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
+            image = _image_from_u8(image, im_info, pixel_means)
         if is_fpn:
-            feat, rpn_out = model.features_and_rpn(image)
+            with trace.span("predict.trunk_rpn"):
+                feat, rpn_out = model.features_and_rpn(image)
             rpn_cls = {s: c for s, (c, _) in rpn_out.items()}
             rpn_bbox = {s: b for s, (_, b) in rpn_out.items()}
-            rois, roi_scores, roi_real = generate_proposals_fpn(
-                rpn_out, base_anchors, im_info, pre_n, post_n, rpn_thresh,
-                min_size)
+            with trace.span("predict.proposals"):
+                rois, roi_scores, roi_real = generate_proposals_fpn(
+                    rpn_out, base_anchors, im_info, pre_n, post_n, rpn_thresh,
+                    min_size)
         else:
-            feat, rpn_cls, rpn_bbox = model.features_and_rpn(image, res4_folded)
-            fg_prob = torch.softmax(rpn_cls, dim=-1)[..., 1]
-            rois, roi_scores, roi_real = generate_proposals(
-                fg_prob, rpn_bbox, base_anchors, im_info, stride, pre_n,
-                post_n, rpn_thresh, min_size)
-        cls_score, bbox_deltas, fc2 = model.head(feat, rois, nongt_dim)
+            with trace.span("predict.trunk_rpn"):
+                feat, rpn_cls, rpn_bbox = model.features_and_rpn(image,
+                                                                 res4_folded)
+            with trace.span("predict.proposals"):
+                fg_prob = torch.softmax(rpn_cls, dim=-1)[..., 1]
+                rois, roi_scores, roi_real = generate_proposals(
+                    fg_prob, rpn_bbox, base_anchors, im_info, stride, pre_n,
+                    post_n, rpn_thresh, min_size)
+        with trace.span("predict.head"):
+            cls_score, bbox_deltas, fc2 = model.head(feat, rois, nongt_dim)
         out = {"rois": rois, "roi_scores": roi_scores, "roi_real": roi_real,
                "feat": feat, "rpn_cls": rpn_cls, "rpn_bbox": rpn_bbox,
                "cls_score": cls_score, "bbox_pred": bbox_deltas, "fc2": fc2}
-        out.update(tail(cls_score, bbox_deltas, fc2, rois, roi_real, im_info))
+        with trace.span("predict.tail"):
+            out.update(tail(cls_score, bbox_deltas, fc2, rois, roi_real,
+                            im_info))
         if debug_monitor:
             out["monitor"] = {name: tensor_stats(x) for name, x in (
                 ("rois", rois), ("cls_score", cls_score),
@@ -333,22 +344,27 @@ def make_predict_fn_rcnn(model: RelationRCNN | RelationRCNNFPN, cfg):
     base = make_predict_fn(model, cfg)
 
     @torch.inference_mode()
+    @trace.span("predict", request=True)
     def predict(image, im_info, rois, rois_valid):
-        image = torch.as_tensor(image, device=device)
-        im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
-        rois = torch.as_tensor(rois, dtype=torch.float32, device=device)
-        rois_valid = torch.as_tensor(rois_valid, device=device).bool()
-        image = _image_from_u8(image, im_info, pixel_means)
-        feat = model.features_and_rpn(image)[0]
-        cls_score, bbox_deltas, fc2 = model.head(feat, rois, rois.shape[0])
+        with trace.span("predict.input"):
+            image = torch.as_tensor(image, device=device)
+            im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
+            rois = torch.as_tensor(rois, dtype=torch.float32, device=device)
+            rois_valid = torch.as_tensor(rois_valid, device=device).bool()
+            image = _image_from_u8(image, im_info, pixel_means)
+        with trace.span("predict.trunk_rpn"):
+            feat = model.features_and_rpn(image)[0]
+        with trace.span("predict.head"):
+            cls_score, bbox_deltas, fc2 = model.head(feat, rois, rois.shape[0])
         out = {"rois": rois, "cls_score": cls_score, "bbox_pred": bbox_deltas,
                "fc2": fc2}
-        if learn_nms:
-            out.update(base.learned_tail(cls_score, bbox_deltas, rois, fc2,
-                                         im_info, class_thresh=0.0))
-        else:
-            out.update(base.classic_tail(cls_score, bbox_deltas, rois,
-                                         rois_valid, im_info))
+        with trace.span("predict.tail"):
+            if learn_nms:
+                out.update(base.learned_tail(cls_score, bbox_deltas, rois, fc2,
+                                             im_info, class_thresh=0.0))
+            else:
+                out.update(base.classic_tail(cls_score, bbox_deltas, rois,
+                                             rois_valid, im_info))
         return out
 
     return predict

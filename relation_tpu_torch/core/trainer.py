@@ -50,6 +50,7 @@ from relation_tpu_torch.models.targets import (anchor_targets, nms_multi_target,
                                                ohem_select, sample_rois,
                                                uniform_priorities)
 from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
+from relation_tpu_torch.utils import trace
 from relation_tpu_torch.utils.lr import warmup_multi_factor_schedule
 
 _ALWAYS_FROZEN = ("gamma", "beta", "moving_mean", "moving_var")
@@ -83,6 +84,7 @@ def _freeze_through(fixed_prefixes) -> int:
                default=0)
 
 
+@trace.span("setup.model")
 def build_model(cfg, tiny: bool = False,
                 device="cuda") -> RelationRCNN | RelationRCNNFPN:
     """Instantiate the detector from a reference-schema config, on ``device``
@@ -611,6 +613,7 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     return losses
 
 
+@trace.span("step", request=True)
 def run_step(model, state: TrainState, batch, priorities, per_image, *,
              step_mask: dict, no_grad: bool, device, pixel_means, mesh=None,
              draw=None, reaches_params: bool = True):
@@ -637,64 +640,72 @@ def run_step(model, state: TrainState, batch, priorities, per_image, *,
     dp = mesh is not None and mesh.distributed
     if dp and draw is None:
         raise ValueError("this step has no data-parallel form")
-    image = torch.as_tensor(batch["image"], device=device)
-    ins = {}
-    for k, v in batch.items():
-        if k != "image":
-            v = torch.as_tensor(v, device=device)
-            ins[k] = v.bool() if k.endswith("valid") else v.float()
-    B = image.shape[0]
-    if priorities is not None and len(priorities) != B:
-        raise ValueError(f"priorities for {len(priorities)} images, "
-                         f"batch of {B}")
-    means = tuple(float(m) for m in pixel_means)
-    _set_requires_grad(model, step_mask)
-    with torch.set_grad_enabled(not no_grad):
+    with trace.span("step.input"):
+        image = torch.as_tensor(batch["image"], device=device)
+        ins = {}
+        for k, v in batch.items():
+            if k != "image":
+                v = torch.as_tensor(v, device=device)
+                ins[k] = v.bool() if k.endswith("valid") else v.float()
+        B = image.shape[0]
+        if priorities is not None and len(priorities) != B:
+            raise ValueError(f"priorities for {len(priorities)} images, "
+                             f"batch of {B}")
         if image.dtype == torch.uint8:
+            means = tuple(float(m) for m in pixel_means)
             image = torch.stack([_image_from_u8(image[b], ins["im_info"][b],
                                                 means) for b in range(B)])
-        if isinstance(model, RelationRCNNFPN):
-            pyramid, rpn_out = model.features_and_rpn(image)
-            feats = [{s: f[b] for s, f in pyramid.items()} for b in range(B)]
-            rpns = [{s: (c[b], r[b]) for s, (c, r) in rpn_out.items()}
-                    for b in range(B)]
-        else:
-            feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
-            feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
-        if dp and priorities is None:
-            every = draw(rpns[0], B * mesh.world, ins["gt_boxes"].shape[1],
-                         state.generator)
-            priorities = every[mesh.rank * B:(mesh.rank + 1) * B]
-        totals, per = [], []
-        for b in range(B):
-            tot, m = per_image(feats[b], rpns[b],
-                               {k: v[b] for k, v in ins.items()},
-                               state.generator,
-                               None if priorities is None else priorities[b])
-            totals.append(tot)
-            per.append(m)
-        loss = torch.stack(totals).mean()
-        names = sorted(per[0])
-        metrics = torch.stack([torch.stack([m[k] for m in per]).mean().detach()
-                               for k in names])
+    _set_requires_grad(model, step_mask)
+    with torch.set_grad_enabled(not no_grad):
+        with trace.span("step.trunk_rpn"):
+            if isinstance(model, RelationRCNNFPN):
+                pyramid, rpn_out = model.features_and_rpn(image)
+                feats = [{s: f[b] for s, f in pyramid.items()}
+                         for b in range(B)]
+                rpns = [{s: (c[b], r[b]) for s, (c, r) in rpn_out.items()}
+                        for b in range(B)]
+            else:
+                feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
+                feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
+        with trace.span("step.rois"):
+            if dp and priorities is None:
+                every = draw(rpns[0], B * mesh.world, ins["gt_boxes"].shape[1],
+                             state.generator)
+                priorities = every[mesh.rank * B:(mesh.rank + 1) * B]
+            totals, per = [], []
+            for b in range(B):
+                tot, m = per_image(feats[b], rpns[b],
+                                   {k: v[b] for k, v in ins.items()},
+                                   state.generator,
+                                   None if priorities is None else priorities[b])
+                totals.append(tot)
+                per.append(m)
+            loss = torch.stack(totals).mean()
+            names = sorted(per[0])
+            metrics = torch.stack([torch.stack([m[k] for m in per]).mean()
+                                   .detach() for k in names])
         if not no_grad:
-            for p in model.parameters():
-                p.grad = None
-            if reaches_params and any(step_mask.values()):
-                loss.backward()
+            with trace.span("step.backward"):
+                for p in model.parameters():
+                    p.grad = None
+                if reaches_params and any(step_mask.values()):
+                    loss.backward()
             if dp:
-                grads = []
-                for n, p in model.named_parameters():
-                    if step_mask[n]:
-                        if p.grad is None:
-                            p.grad = torch.zeros_like(p)
-                        grads.append(p.grad)
-                all_reduce_mean(mesh, grads + [metrics])
-            state.tx.update(model, state.trace, state.count)
-            for p in model.parameters():
-                p.grad = None
+                with trace.span("step.allreduce"):
+                    grads = []
+                    for n, p in model.named_parameters():
+                        if step_mask[n]:
+                            if p.grad is None:
+                                p.grad = torch.zeros_like(p)
+                            grads.append(p.grad)
+                    all_reduce_mean(mesh, grads + [metrics])
+            with trace.span("step.update"):
+                state.tx.update(model, state.trace, state.count)
+                for p in model.parameters():
+                    p.grad = None
             state.count += 1
         elif dp:
-            all_reduce_mean(mesh, [metrics])
+            with trace.span("step.allreduce"):
+                all_reduce_mean(mesh, [metrics])
     state.step += 1
     return state, dict(zip(names, metrics.unbind()))

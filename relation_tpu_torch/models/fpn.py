@@ -35,6 +35,7 @@ from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
 from relation_tpu_torch.ops.nms import nms_topk_presorted
 from relation_tpu_torch.ops.roi_pool import roi_align_mxu, roi_pool
+from relation_tpu_torch.utils import trace
 
 FPN_STRIDES = (64, 32, 16, 8, 4)          # P6..P2, reference output order
 DISPATCH_STRIDES = (4, 8, 16, 32)          # rois_0..rois_3
@@ -110,6 +111,7 @@ def pool_pyramid(pyramid, rois: torch.Tensor, pooled_size: int = 7,
     pool = roi_pool if roi_method == "pool" else roi_align_mxu
     fid = roi_level_dispatch(rois)
     order = torch.argsort(fid, stable=True)
+    trace.count("host_read.fpn_level_counts")
     counts = torch.bincount(fid, minlength=len(DISPATCH_STRIDES)).tolist()
     parts, lo = [], 0
     for s, n in zip(DISPATCH_STRIDES, counts):

@@ -28,6 +28,7 @@ from relation_tpu_torch.ops.kernels.geom_bias import (fused_geometric_bias,
                                                       fused_geometric_bias_skip)
 from relation_tpu_torch.ops.kernels.nms_attention import (
     fused_nms_relation_attention, fused_nms_relation_attention_skip)
+from relation_tpu_torch.utils import trace
 
 
 class Dense(nn.Linear):
@@ -157,25 +158,36 @@ class NMSRelationModule(nn.Module):
         wl = getattr(self, f"nms_linear_out_{i}_weight")
         if not (self.allow_pallas if allow_pallas is None else allow_pallas):
             m = self.compact_classes
-            if active is not None and 0 < m < c and int(active.sum()) <= m:
+            if active is not None and 0 < m < c and _n_active(active) <= m:
+                trace.count("lnms.branch.skip")
                 dt = q.dtype
                 bias = fused_geometric_bias_skip(position_mat_t, wg, bg, active)
                 y = fused_bias_attention_skip(
                     bias, q.float(), k.float(), feat.to(dt).float(),
                     wl.to(dt).float(), active).to(dt).float()
             else:
+                trace.count("lnms.branch.dense")
                 y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl)
-        elif active is not None and int(active.sum()) <= c // 2:
+        elif active is not None and _n_active(active) <= c // 2:
+            trace.count("lnms.branch.skip")
             y = fused_nms_relation_attention_skip(
                 position_mat_t, q.float(), k.float(), feat.float(), wg, bg,
                 wl, active)
         elif active is None and self.fully_fused:
+            trace.count("lnms.branch.fused")
             y = fused_nms_relation_attention(
                 position_mat_t, q.float(), k.float(), feat.float(), wg, bg, wl)
         else:
+            trace.count("lnms.branch.dense")
             y = _dense_attention(position_mat_t, q, k, feat, wg, bg, wl)
         y = y + getattr(self, f"nms_linear_out_{i}_bias")
         return y.transpose(0, 1)                                # [N, C, out]
+
+
+def _n_active(active) -> int:
+    """The number of active classes: a host read of device data."""
+    trace.count("host_read.lnms_active")
+    return int(active.sum())
 
 
 def _dense_attention(position_mat_t, q, k, feat, wg, bg, wl):

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from relation_tpu_torch.utils import trace
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -49,6 +51,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+@trace.span("setup.kernels")
 def build_all(names=SOURCES) -> float:
     """Compile every missing library of ``names`` in parallel; returns the
     wall seconds spent. Raises with nvcc's output if any build fails. The
@@ -74,6 +77,7 @@ def build_all(names=SOURCES) -> float:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+        trace.count("kernels.built")
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
@@ -90,7 +94,9 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build_all([name])
-        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        with trace.span("setup.kernels"):
+            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        trace.count("kernels.loaded")
     return lib
 
 

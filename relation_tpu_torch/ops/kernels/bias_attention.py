@@ -18,6 +18,7 @@ import torch
 
 from relation_tpu_torch.ops.kernels import _build
 from relation_tpu_torch.ops.kernels.nms_attention import MAX_SMEM, smem_bytes
+from relation_tpu_torch.utils import trace
 
 launches = 0          # kernel launches over every class (CUDA only)
 skip_launches = 0     # kernel launches with class skipping (CUDA only)
@@ -44,6 +45,7 @@ def bias_attention_reference(bias, q, k, v, wl, active=None):
     (head-major channels g*E + e). With ``active`` [C], only active classes
     are computed; the other rows are zero."""
     if active is not None:
+        trace.count("host_read.skip_classes")
         idx = torch.nonzero(active != 0).flatten()
         out = torch.zeros((q.shape[0], q.shape[1], wl.shape[0] * wl.shape[2]),
                           dtype=torch.float32, device=q.device)

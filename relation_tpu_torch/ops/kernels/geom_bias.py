@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from relation_tpu_torch.ops.kernels import _build
+from relation_tpu_torch.utils import trace
 
 launches = 0          # launches of the forward kernel (CUDA only)
 bwd_launches = 0      # launches of the backward kernel (CUDA only)
@@ -67,6 +68,7 @@ def geom_bias_skip_reference(pos_t: torch.Tensor, kernel: torch.Tensor,
     with ``active`` [C] != 0 as ``geom_bias_reference`` computes them, zeros
     elsewhere."""
     C, _, N, M = pos_t.shape
+    trace.count("host_read.skip_classes")
     idx = torch.nonzero(active != 0).flatten()
     out = torch.zeros((C, kernel.shape[1], N, M), dtype=torch.float32,
                       device=pos_t.device)

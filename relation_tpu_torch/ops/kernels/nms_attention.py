@@ -19,6 +19,7 @@ import torch
 
 from relation_tpu_torch.ops.kernels import _build
 from relation_tpu_torch.ops.kernels.geom_bias import geom_bias_reference
+from relation_tpu_torch.utils import trace
 
 launches = 0          # kernel launches of the skip attention (CUDA only)
 full_launches = 0     # kernel launches of the unskipped attention (CUDA only)
@@ -72,6 +73,7 @@ def nms_relation_attention_reference(pos_t, q, k, v, wg, bg, wl, active=None,
     wl [G,F,E] -> [C, N, G*E] (head-major channels g*E + e). With ``active``
     [C], only active classes are computed; the other rows are zero."""
     if active is not None:
+        trace.count("host_read.skip_classes")
         idx = torch.nonzero(active != 0).flatten()
         out = torch.zeros((q.shape[0], q.shape[1], wl.shape[0] * wl.shape[2]),
                           dtype=torch.float32, device=q.device)

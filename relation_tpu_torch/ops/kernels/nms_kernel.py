@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from relation_tpu_torch.ops.kernels import _build
+from relation_tpu_torch.utils import trace
 
 launches = 0          # kernel launches of nms_keep_sorted (CUDA only)
 launch_shapes: dict[str, int] = {}   # its launches by "C= Np="
@@ -54,6 +55,7 @@ def nms_keep_sorted_reference(boxesT: torch.Tensor, valid: torch.Tensor,
                                   device=boxesT.device), diagonal=1)
     for lo in range(0, N, block):
         live = kept < cap                                  # [C]
+        trace.count("host_read.nms_live")
         if not bool(live.any()):
             break
         blk = tuple(p[:, lo:lo + block, None] for p in planes)   # [C, T, 1]

@@ -17,6 +17,7 @@ import torch
 
 from relation_tpu_torch.ops.boxes import bbox_overlaps
 from relation_tpu_torch.ops.kernels.nms_kernel import nms_keep_sorted
+from relation_tpu_torch.utils import trace
 
 _NEG_INF = -1e10
 
@@ -74,6 +75,7 @@ def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float
         seed = valid_s[lo:lo + B] & ~sup_prev
         active = _intra_block_fixpoint(bbox_overlaps(blk, blk) > iou_thresh, seed)
         keep_s[lo:lo + B] = active
+        trace.count("host_read.nms_kept")
         kept += int(active.sum())
     keep = torch.zeros((n,), dtype=torch.bool, device=dev)
     keep[order] = keep_s[:n]

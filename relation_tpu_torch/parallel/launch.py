@@ -21,6 +21,8 @@ import time
 import numpy as np
 import torch
 
+from relation_tpu_torch.utils import trace
+
 
 def spawn(fn, world: int, *args, backend: str = "gloo", device="cpu",
           threads: int | None = None) -> list:
@@ -162,26 +164,6 @@ def pred_eval_rank(mesh, cfg, root: str, image_set: str, tiny: bool = False,
     return {"dets": dets, "stats": stats}
 
 
-def kernel_launches() -> dict:
-    """{"module.counter": value} of every launch counter of ops/kernels (the
-    integers named *launches, and the dicts of launches by shape named
-    *launch_shapes) in this process."""
-    import importlib
-    import pkgutil
-    import relation_tpu_torch.ops.kernels as kernels
-    out = {}
-    for info in pkgutil.iter_modules(kernels.__path__):
-        if info.name.startswith("_"):
-            continue
-        mod = importlib.import_module(f"{kernels.__name__}.{info.name}")
-        for attr, v in vars(mod).items():
-            if attr.endswith("launches") and isinstance(v, int):
-                out[f"{info.name}.{attr}"] = v
-            elif attr.endswith("launch_shapes") and isinstance(v, dict):
-                out[f"{info.name}.{attr}"] = dict(v)
-    return out
-
-
 def train_and_eval_rank(mesh, cfg, batch: dict, steps: int, eval_cfg,
                         root: str, image_set: str, tiny: bool = False,
                         arrays: dict | None = None) -> dict:
@@ -189,12 +171,12 @@ def train_and_eval_rank(mesh, cfg, batch: dict, steps: int, eval_cfg,
     in one rank, with this process's kernel launches of each part (the
     counters start at zero in a spawned rank)."""
     out = {"train": train_steps(mesh, cfg, batch, tiny=tiny, steps=steps)}
-    out["train_launches"] = kernel_launches()
+    out["train_launches"] = trace.kernel_launches()
     if torch.device(mesh.device).type == "cuda":
         torch.cuda.empty_cache()
     out["eval"] = pred_eval_rank(mesh, eval_cfg, root, image_set, tiny=tiny,
                                  arrays=arrays)
-    out["launches"] = kernel_launches()
+    out["launches"] = trace.kernel_launches()
     return out
 
 

@@ -12,16 +12,14 @@ tools/calibrate.py) on cuda:0, serves it through
 core/predictor.py::build_predict_fn (the split form for fpn_learn_nms),
 warms up, then:
 
-1. stage split: host clock with torch.cuda.synchronize() around each stage
-   of one seeded 608x1024 request, median over --requests: for a C4 family
-   C4 trunk + RPN head, res5 + conv_new_1, proposals, ROI head, tail
-   (learned NMS or classic NMS with the detection cut); for an FPN family
-   trunk + res5 + neck + RPN over five levels, proposals, ROI head (4-level
-   pool, FCs, relations), tail;
-2. torch.profiler over --requests whole requests: device busy time (the
-   sum of kernel times, overlaps merged) against the window's wall time,
-   so the idle share, and the kernels ranked by device time;
-3. for a DCN family, the deformable ops alone at full width with CUDA
+1. torch.profiler over --requests whole seeded 608x1024 requests: device
+   busy time (the sum of kernel times, overlaps merged) against the
+   window's wall time, so the idle share; the program's stage spans
+   (utils/trace.py, enabled here: predict.input, predict.trunk_rpn,
+   predict.proposals, predict.head, predict.tail) with their calls and
+   host time a request and the device time of the kernels launched under
+   each; and the kernels ranked by device time;
+2. for a DCN family, the deformable ops alone at full width with CUDA
    events: the deformable conv of res5 (512 channels, 38x64, 4 groups,
    bf16) forward and backward at B=1 and B=2, and the deformable PSROI pool
    (300 ROIs, 7x7, 4 samples a part, 256 channels) without and with trans,
@@ -34,8 +32,11 @@ With --workflow it profiles fpn_learn_nms's alternate workflow instead
 With --train it profiles --requests train steps instead (B=2, the batch and
 the clip of chip_smoke.py's training phase, after two warm-up steps; any
 family, an FPN one calibrated as above): wall time, device busy time, idle
-share, the operations ranked by device time and by host time, and the
-indexing operations (index_put and the like, forward and backward).
+share, the program's stage spans (step.input, step.trunk_rpn, step.rois,
+step.backward, step.update; a span's device time leaves out the backward's
+kernels, which autograd's own thread launches), the operations ranked by
+device time and by host time, and the indexing operations (index_put and
+the like, forward and backward).
 
 Prints the card's name and power limit first. Needs a CUDA card and
 chip_smoke.py beside the package (its batches and timing helpers).
@@ -45,12 +46,13 @@ from __future__ import annotations
 
 import argparse
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+from relation_tpu_torch.utils import trace
 
 
 def time_deformable_ops(torch, dev, time_ms):
@@ -95,9 +97,11 @@ def time_deformable_ops(torch, dev, time_ms):
 
 
 def device_busy_us(torch, prof) -> tuple[float, int]:
-    """(device busy us with overlaps merged, number of device ops)."""
+    """(device busy us with overlaps merged, number of device ops); the
+    program spans' copies on the device's timeline are no device work."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(trace.PREFIX))
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -112,17 +116,35 @@ def device_busy_us(torch, prof) -> tuple[float, int]:
 
 
 def report(torch, prof, wall_us: float, n: int, unit: str) -> None:
+    """The profiled window: device busy time and idle share, the program's
+    spans (utils/trace.py, reset before the window) with the device time
+    of the kernels each launched on its own thread, and the top device
+    operations."""
     busy, n_ops = device_busy_us(torch, prof)
     print(f"profiled {n} {unit}s: wall {wall_us / 1e3:.3f} ms, device "
           f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{n_ops / n:.0f} device ops per {unit}")
-    rows = sorted(prof.key_averages(), key=lambda r: -r.self_device_time_total)
+    dev = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                and e.name.startswith(trace.PREFIX)):
+            name = e.name[len(trace.PREFIX):]
+            dev[name] = dev.get(name, 0.0) + e.device_time_total
+    print(f"program spans per {unit} (calls, host ms, device ms): " + "; ".join(
+        f"{k} {v['count'] / n:g}, {1e3 * v['total_s'] / n:.3f}, "
+        f"{dev.get(k, 0.0) / 1e3 / n:.3f}"
+        for k, v in trace.snapshot()["spans"].items()))
+    # the spans' copies on the device's timeline are no device work
+    rows = sorted((r for r in prof.key_averages()
+                   if not r.key.startswith(trace.PREFIX)),
+                  key=lambda r: -r.self_device_time_total)
     print(f"top device time per {unit} (us): " + "; ".join(
         f"{r.key[:60]} {r.self_device_time_total / n:.1f} (x{r.count // n})"
         for r in rows[:15] if r.self_device_time_total > 0))
 
 
-def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
+def profile_training(torch, dev, family: str, steps: int,
+                     trace_file: str) -> None:
     from chip_smoke import training_batch
     from relation_tpu_torch.tools.calibrate import calibrate_heads, seed_offsets
     from relation_tpu_torch.convert import init_params
@@ -146,14 +168,15 @@ def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
+    trace.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if trace:
-        prof.export_chrome_trace(trace)
+    if trace_file:
+        prof.export_chrome_trace(trace_file)
     print(f"{family} train step, B={batch['image'].shape[0]}")
     report(torch, prof, wall_us, steps, "step")
     rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
@@ -168,7 +191,7 @@ def profile_training(torch, dev, family: str, steps: int, trace: str) -> None:
         for r in rows if "index" in r.key.lower()))
 
 
-def profile_workflow(torch, dev, steps: int, trace: str) -> None:
+def profile_workflow(torch, dev, steps: int, trace_file: str) -> None:
     """fpn_learn_nms through the alternate workflow, set up by chip_smoke.py's
     phase 12 (``workflow_setup``: calibrated, the three seeded images; the
     proposal dump's 1000 best ROIs an image, ``cached_rois``; train_shared,
@@ -202,6 +225,7 @@ def profile_workflow(torch, dev, steps: int, trace: str) -> None:
         for _ in range(2):
             call()
         torch.cuda.synchronize()
+        trace.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -209,8 +233,8 @@ def profile_workflow(torch, dev, steps: int, trace: str) -> None:
                 call()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        if trace:
-            prof.export_chrome_trace(f"{trace}.{unit.split()[0]}.json")
+        if trace_file:
+            prof.export_chrome_trace(f"{trace_file}.{unit.split()[0]}.json")
         print(f"fpn_learn_nms alternate workflow, {unit}, {int(valid.sum())} "
               f"cached ROIs")
         report(torch, prof, wall_us, steps, unit.split()[-1])
@@ -229,7 +253,6 @@ def main():
     ap.add_argument("--workflow", action="store_true")
     args = ap.parse_args()
     import torch
-    import torch.nn.functional as F
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
@@ -240,15 +263,13 @@ def main():
     from relation_tpu_torch.core.predictor import build_predict_fn
     from relation_tpu_torch.core.trainer import build_model
     from relation_tpu_torch.entry import BUCKET, family_cfg
-    from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
-                                               generate_proposals_fpn)
-    from relation_tpu_torch.models.rpn import generate_proposals
-    from relation_tpu_torch.ops.anchors import generate_anchors
+    from relation_tpu_torch.models.fpn import RelationRCNNFPN
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda", 0)
+    trace.enable()
     if args.train:
         profile_training(torch, dev, args.family, args.requests, args.trace)
         return
@@ -267,60 +288,12 @@ def main():
         calibrate_heads(model, predict, image, im_info)
     elif model.dcn:
         seed_offsets(model, cfg, image, im_info)
-    net, test = cfg.network, cfg.TEST
-    stride = int(net.RPN_FEAT_STRIDE)
-    ratios, scales = tuple(net.ANCHOR_RATIOS), tuple(net.ANCHOR_SCALES)
-    anchors = torch.tensor(generate_anchors(stride, ratios, scales),
-                           dtype=torch.float32, device=dev)
-    level_anchors = {s: torch.tensor(generate_anchors(s, ratios, scales),
-                                     dtype=torch.float32, device=dev)
-                     for s in FPN_STRIDES}
-    proposal_args = (int(test.RPN_PRE_NMS_TOP_N), int(test.RPN_POST_NMS_TOP_N),
-                     float(test.RPN_NMS_THRESH), float(test.RPN_MIN_SIZE))
     for _ in range(2):
         predict(image, im_info)
     torch.cuda.synchronize()
 
-    names = (("trunk+c5+neck+rpn", "proposals", "head", "tail") if fpn else
-             ("c4+rpn", "res5", "proposals", "head", "tail"))
-    stages = {k: [] for k in names + ("total",)}
-    with torch.inference_mode():
-        for _ in range(args.requests):
-            t = [time.perf_counter()]
-
-            def mark():
-                torch.cuda.synchronize()
-                t.append(time.perf_counter())
-            if fpn:
-                feat, rpn_out = model.features_and_rpn(image)
-                mark()
-                rois, _, roi_real = generate_proposals_fpn(
-                    rpn_out, level_anchors, im_info, *proposal_args)
-                mark()
-            else:
-                c4 = model.c4(image[None])
-                rpn_cls, rpn_bbox = model.rpn(c4)
-                mark()
-                feat = F.relu(model.conv_new_1(model.c5(c4))).permute(0, 2, 3, 1)[0]
-                mark()
-                rois, _, roi_real = generate_proposals(
-                    torch.softmax(rpn_cls[0], -1)[..., 1], rpn_bbox[0], anchors,
-                    im_info, stride, *proposal_args)
-                mark()
-            cls_score, bbox_pred, fc2 = model.head(
-                feat, rois, int(test.RPN_POST_NMS_TOP_N))
-            mark()
-            predict.tail(cls_score, bbox_pred, fc2, rois, roi_real, im_info)
-            mark()
-            for k, (a, b) in zip(stages, zip(t[:-1], t[1:])):
-                stages[k].append((b - a) * 1e3)
-            stages["total"].append((t[-1] - t[0]) * 1e3)
-    print("%s stage split, host clock ms (median of %d): %s" % (
-        args.family, args.requests, "; ".join(
-            f"{k} {statistics.median(v):.3f}" for k, v in stages.items())))
-
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
+    trace.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.requests):

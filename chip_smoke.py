@@ -14,7 +14,7 @@
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of relation_tpu_torch/csrc/ from source, one nvcc per source.
-2. Holds each of the thirteen kernels against its plain PyTorch version on
+2. Holds each of the fourteen kernels against its plain PyTorch version on
    the card, at the shapes the driven models give it (the geometric bias at
    its seven launch shapes, its backward at five, among them the alternate
    workflow's head over 1016 rows against 300 keys, predict_rcnn's over
@@ -35,7 +35,10 @@
    a 100x64 map, with the run-to-run difference its atomic ranks leave; the
    bottleneck stack at res4
    (22 blocks), res3 and res2 and the projection bottleneck at res2a, res3a
-   and res4a of the 608x1024 trunk, on BN-folded weights of a seeded trunk),
+   and res4a of the 608x1024 trunk, on BN-folded weights of a seeded trunk;
+   the pyramid ROIAlign at the FPN RCNN step's four levels and 1016 ROIs
+   and at the C4 head's map, beside the per-level roi_align_mxu
+   formulation it replaced),
    on seeded random inputs, and times kernel, plain version and (where
    PyTorch computes the same function) a library yardstick with CUDA
    events. The two trunk kernels have two: cuDNN convolutions,
@@ -170,7 +173,7 @@
    attention runs (none before lnms_attn; rows 1, 2 and 7, or row 6 under
    fully_fused, from it on); each cut's ms on the host clock and by CUDA
    events.
-17. Prints the launches of rows 1, 2, 4, 7, 9 and roi_pool by shape, one
+17. Prints the launches of rows 1, 2, 4, 7, 9, roi_pool and roi_align by shape, one
    JSON line describing every kernel (launches summed over the driven
    paths), then the device line.
 
@@ -1194,6 +1197,124 @@ def check_roi_pool(torch, dev, rng):
     return result
 
 
+def roi_align_bound(levels, R, P=7, backward=False):
+    """(bound_ms, bound_by) of one pyramid ROIAlign: forward, the maps read
+    once, the ROIs, the pooled values written once; backward, the cotangent
+    read once and every level's f32 gradient written once. Four taps a
+    sample, S x S = 4 samples a bin, a multiply-add a tap, at the f32
+    rate."""
+    C = levels[0].shape[2]
+    size = levels[0].element_size()
+    cells = sum(f.shape[0] * f.shape[1] for f in levels)
+    out = R * P * P * C * size
+    nbytes = R * 16 + (out + cells * C * 4 if backward else cells * C * size + out)
+    return bound(nbytes, 2 * 16 * R * P * P * C, F32_PEAK)
+
+
+def check_roi_align(torch, dev, rng):
+    """The pyramid ROIAlign (no Pallas counterpart: the JAX package's
+    roi_align_mxu is two dense contractions, which the port used to run,
+    grouped by a host read of the level counts). At the FPN RCNN step's
+    shape (the four levels of an 800x1024 bucket, 200x256 .. 25x32, 256
+    channels, 1016 ROIs of 16-900 px, so every level gets some) and at the
+    C4 head's (38x64x256, 300 proposals), f32: the forward and every
+    level's gradient within 1e-5 of the plain version's largest element.
+    Times, CUDA events: the forward kernel on channels-last maps
+    (``ms``), the op as the model calls it on a pyramid level's NCHW view
+    (the channels-last copy of each level included, ``op_ms``), the
+    forward kernel reading the NCHW view through its strides, the
+    backward kernel (its zeroed gradients included), the op's forward +
+    backward, the plain version, and the formulation it replaces (each
+    level's ROIs by roi_align_mxu after a host read of the counts, forward
+    and forward + backward). The JSON row is the FPN shape's forward."""
+    from relation_tpu_torch.ops.kernels import roi_align as K
+    from relation_tpu_torch.ops.roi_pool import roi_align_mxu
+
+    def per_level_mxu(levels, scales, rois):
+        fid = K.roi_levels(rois, len(levels))
+        order = torch.argsort(fid, stable=True)
+        counts = torch.bincount(fid, minlength=len(levels)).tolist()
+        parts, lo = [], 0
+        for f, s, n in zip(levels, scales, counts):
+            if n:
+                parts.append(roi_align_mxu(f, rois[order[lo:lo + n]], s, 7))
+            lo += n
+        pooled = torch.cat(parts)
+        out = torch.empty_like(pooled)
+        out[order] = pooled
+        return out
+
+    def fwd_bwd(fn, levels, scales, rois, cot):
+        lv = [f.detach().requires_grad_() for f in levels]
+        torch.autograd.grad(fn(lv, scales, rois), lv, cot)
+
+    cases = [("FPN rcnn_b4", ((200, 256), (100, 128), (50, 64), (25, 32)),
+              (4, 8, 16, 32), 1016),
+             ("C4 head", ((38, 64),), (16,), 300)]
+    result = None
+    for label, shapes, strides, R in cases:
+        im_h, im_w = shapes[0][0] * strides[0], shapes[0][1] * strides[0]
+        c = rng.uniform([0, 0], [im_w, im_h], (R, 2))
+        wh = np.exp(rng.uniform(np.log(16), np.log(900), (R, 2)))
+        b = np.concatenate([c - wh / 2, c + wh / 2], 1)
+        b[:, 0::2] = b[:, 0::2].clip(0, im_w - 1)
+        b[:, 1::2] = b[:, 1::2].clip(0, im_h - 1)
+        rois = torch.tensor(b.astype(np.float32), device=dev)
+        # each level as the model hands it: a [h, w, C] view of NCHW
+        nchw = [torch.tensor(rng.randn(1, 256, h, w).astype(np.float32),
+                             device=dev).permute(0, 2, 3, 1)[0]
+                for h, w in shapes]
+        levels = [f.contiguous() for f in nchw]
+        scales = [1.0 / s for s in strides]
+        cot = torch.tensor(rng.randn(R, 7, 7, 256).astype(np.float32),
+                           device=dev)
+        lv = [f.clone().requires_grad_() for f in nchw]
+        got = K.roi_align_levels(lv, scales, rois)
+        grads = torch.autograd.grad(got, lv, cot)
+        ref = [f.clone().requires_grad_() for f in levels]
+        want = K.roi_align_levels_reference(ref, scales, rois)
+        want_grads = torch.autograd.grad(want, ref, cot)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        g_err = max(float((g - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip(grads, want_grads))
+        ok = err <= 1e-5 * top and g_err <= 1e-5
+        shp = [tuple(f.shape) for f in levels]
+        ms = time_ms(torch, lambda: K._launch(levels, scales, rois, 7, 2))
+        op_ms = time_ms(torch, lambda: K.roi_align_levels(nchw, scales, rois))
+        strided_ms = time_ms(torch, lambda: K._launch(nchw, scales, rois, 7, 2))
+        bwd_ms = time_ms(torch, lambda: K._launch_bwd(
+            cot, rois, shp, scales, 7, 2, [True] * len(shp)))
+        op_fb_ms = time_ms(torch, lambda: fwd_bwd(K.roi_align_levels, nchw,
+                                                  scales, rois, cot))
+        plain_ms = time_ms(torch, lambda: K.roi_align_levels_reference(
+            levels, scales, rois), inner=2, reps=5)
+        mxu_ms = time_ms(torch, lambda: per_level_mxu(nchw, scales, rois),
+                         inner=2, reps=5)
+        mxu_fb_ms = time_ms(torch, lambda: fwd_bwd(per_level_mxu, nchw, scales,
+                                                   rois, cot), inner=2, reps=5)
+        bms, bby = roi_align_bound(levels, R)
+        bbms, bbby = roi_align_bound(levels, R, backward=True)
+        counts = torch.bincount(K.roi_levels(rois, len(levels)),
+                                minlength=len(levels)).tolist()
+        log(f"[kernel] roi_align {label} R={R} (by level {counts}) "
+            f"{'+'.join(f'{h}x{w}' for h, w in shapes)}x256 f32: max abs err "
+            f"{err:.3e} of max {top:.3e}, grad max rel err {g_err:.3e}, "
+            f"{'OK' if ok else 'FAIL'}; kernel_ms {ms:.4f} (bound_us "
+            f"{bms * 1e3:.2f} {bby}) op_ms {op_ms:.4f} (channels-last copies "
+            f"included) strided_ms {strided_ms:.4f} bwd_ms {bwd_ms:.4f} "
+            f"(bound_us {bbms * 1e3:.2f} {bbby}) op_fwd_bwd_ms {op_fb_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} per_level_mxu_ms {mxu_ms:.4f} "
+            f"per_level_mxu_fwd_bwd_ms {mxu_fb_ms:.4f} library_ms none")
+        if not ok:
+            fail(f"roi_align {label} disagrees with its plain version")
+        if result is None:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=bby, library_ms=None)
+    return result
+
+
 def jitter_bn(torch, model, rng) -> None:
     """Non-trivial frozen-BN statistics (init_params leaves BN at identity,
     which would hide a fold that mixes up its scale and its shift)."""
@@ -1431,7 +1552,8 @@ COUNTERS = {"geom_bias": ("geom_bias", "launches"),
             "fused_geometric_bias_skip": ("geom_bias", "skip_launches"),
             "fused_bias_attention": ("bias_attention", "launches"),
             "fused_bias_attention_skip": ("bias_attention", "skip_launches"),
-            "roi_pool": ("roi_pool", "launches")}
+            "roi_pool": ("roi_pool", "launches"),
+            "roi_align": ("roi_align", "launches")}
 # name in the JSON line -> (module, dict of its launches by shape): the rows
 # whose launches mix shapes, so that launches x (ms - bound) splits by shape
 SHAPES = {"geom_bias": ("geom_bias", "launch_shapes"),
@@ -1439,7 +1561,8 @@ SHAPES = {"geom_bias": ("geom_bias", "launch_shapes"),
           "geom_bias_bwd": ("geom_bias", "bwd_launch_shapes"),
           "fused_bias_attention": ("bias_attention", "launch_shapes"),
           "fused_nms_relation_attention_skip": ("nms_attention", "launch_shapes"),
-          "roi_pool": ("roi_pool", "launch_shapes")}
+          "roi_pool": ("roi_pool", "launch_shapes"),
+          "roi_align": ("roi_align", "launch_shapes")}
 INFERENCE_KERNELS = ("geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu",
                      "fused_nms_relation_attention_skip", "fused_bias_attention")
 
@@ -1494,10 +1617,12 @@ def plain_kernels():
     from relation_tpu_torch.ops.kernels import (bias_attention, bottleneck_proj,
                                                 dconv_col2im, geom_bias,
                                                 nms_attention, nms_kernel, res4,
-                                                roi_pool, stem)
+                                                roi_align, roi_pool, stem)
     swaps = [(deform, "dconv_col2im", dconv_col2im.dconv_col2im_reference),
              (det, "roi_pool", roi_pool.roi_pool_reference),
              (fpn, "roi_pool", roi_pool.roi_pool_reference),
+             (det, "roi_align_levels", roi_align.roi_align_levels_reference),
+             (fpn, "roi_align_levels", roi_align.roi_align_levels_reference),
              (bb, "fused_bottleneck_stack", res4.bottleneck_stack_reference),
              (bb, "fused_proj_bottleneck", bottleneck_proj.proj_bottleneck_reference),
              (bb, "stem_conv1_bn_relu",
@@ -2080,6 +2205,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     forward and backward, once an image a step). Returns (the launch counts
     of the clipped steps, the median ms/step after one warm-up, the peak
     memory in GiB)."""
+    from relation_tpu_torch.ops.kernels import roi_align as RA
     from relation_tpu_torch.ops.kernels import roi_pool as RP
     from relation_tpu_torch.convert import init_params
     from relation_tpu_torch.core.predictor import build_predict_fn
@@ -2134,7 +2260,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
-    RP.bwd_launches = 0
+    RP.bwd_launches = RA.bwd_launches = 0
     history, times = [], []
     for i in range(steps):
         # the first steps on the dense learned-NMS attention, the rest on
@@ -2185,10 +2311,14 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
             "nms_keep_sorted": steps * B,
             "geom_bias": geom,
             "dconv_col2im": 3 * steps if dcn and not tiny else 0,
-            "roi_pool": steps * B if pool and not fpn else 0}
+            "roi_pool": steps * B if pool and not fpn else 0,
+            # the ROIAlign heads: one launch an image, forward and backward
+            "roi_align": steps * B if not (pool or dcn) else 0}
     short = {k: (launches[k], n) for k, n in want.items() if launches[k] < n}
     if pool and RP.bwd_launches < launches["roi_pool"]:
         short["roi_pool backward"] = (RP.bwd_launches, launches["roi_pool"])
+    if RA.bwd_launches < want["roi_align"]:
+        short["roi_align backward"] = (RA.bwd_launches, want["roi_align"])
     if launches["dconv_col2im"] != want["dconv_col2im"]:
         short["dconv_col2im"] = (launches["dconv_col2im"], want["dconv_col2im"])
     if short:
@@ -2226,7 +2356,7 @@ def run_training(torch, dev, card: str = "", tiny: bool = False,
     # in f32
     missing = [k for k in ("geom_bias", "geom_bias_bwd", "fused_bias_attention",
                            "nms_keep_sorted", "stem_conv1_bn_relu", "dconv_col2im",
-                           "roi_pool")
+                           "roi_pool", "roi_align")
                if want[k] and not first_launches[k]
                and not (f32 and k == "stem_conv1_bn_relu")]
     if missing:
@@ -3724,6 +3854,10 @@ def main() -> None:
         # no Pallas counterpart: the JAX function is plain jnp
         "roi_pool": (csrc + "roi_pool.cu", "relation_tpu/ops/roi_pool.py:246",
                      check_roi_pool, np.random.RandomState(10)),
+        # no Pallas counterpart: the JAX package's ROIAlign is two dense
+        # contractions (roi_align_mxu)
+        "roi_align": (csrc + "roi_align.cu", "relation_tpu/ops/roi_pool.py:98",
+                      check_roi_align, np.random.RandomState(11)),
     }
     if args.phase == "dcn":
         checks = {"dconv_col2im": checks["dconv_col2im"]}
@@ -3734,7 +3868,7 @@ def main() -> None:
         checks = {k: checks[k] for k in (
             "geom_bias", "geom_bias_bwd", "fused_nms_relation_attention_skip",
             "fused_geometric_bias_skip", "fused_bias_attention",
-            "fused_bias_attention_skip")}
+            "fused_bias_attention_skip", "roi_align")}
     if args.phase == "workflow":
         checks = {k: checks[k] for k in (
             "geom_bias", "nms_keep_sorted", "stem_conv1_bn_relu", "geom_bias_bwd",

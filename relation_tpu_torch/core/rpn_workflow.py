@@ -305,7 +305,8 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
     after 'head'; "" is the full step. The sampler draws as in the full
     step up to the cut."""
     from relation_tpu_torch.core.trainer import (head_losses_fn, run_step,
-                                                 step_device, trainable_mask)
+                                                 step_device, target_constants,
+                                                 trainable_mask)
     from relation_tpu_torch.models.targets import sample_rois
 
     if stop_after and stop_after not in STOP_AFTER_RCNN:
@@ -317,10 +318,10 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                          "as in the reference configs")
     num_reg = 2 if cfg.CLASS_AGNOSTIC else int(cfg.dataset.NUM_CLASSES)
     nongt_dim = min(int(cfg.TRAIN.RPN_POST_NMS_TOP_N), int(max_rois))
-    means = tuple(float(x) for x in (cfg.TRAIN.BBOX_MEANS if bbox_means is None
-                                     else bbox_means))
-    stds = tuple(float(x) for x in (cfg.TRAIN.BBOX_STDS if bbox_stds is None
-                                    else bbox_stds))
+    targets = target_constants(
+        cfg.TRAIN.BBOX_MEANS if bbox_means is None else bbox_means,
+        cfg.TRAIN.BBOX_STDS if bbox_stds is None else bbox_stds,
+        cfg.TRAIN.BBOX_WEIGHTS, device)
     if fixed_prefixes is None:
         fixed_prefixes = (cfg.network.FIXED_PARAMS_SHARED if train_shared
                           else cfg.network.FIXED_PARAMS)
@@ -341,8 +342,7 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                 fg_thresh=float(cfg.TRAIN.FG_THRESH),
                 bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
                 bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
-                bbox_normalize=True, bbox_means=means, bbox_stds=stds,
-                bbox_weights=tuple(np.asarray(cfg.TRAIN.BBOX_WEIGHTS).tolist()),
+                bbox_normalize=True, **targets,
                 priorities=None if prio is None else prio.get("sample"))
         if stop_after == "sample":
             total = 1e-30 * (torch.sum(tgt["rois"]) + torch.sum(tgt["bbox_target"])
@@ -392,7 +392,7 @@ def make_train_step_rpn(model, cfg, max_gt: int, device="cuda") -> Callable:
     device = step_device(model, cfg, device, "make_train_step_rpn")
     step_mask = trainable_mask(model, tuple(cfg.network.FIXED_PARAMS))
     rpn_rows = rpn_rows_fn(model, cfg, device)
-    rpn_loss = rpn_loss_fn(cfg)
+    rpn_loss = rpn_loss_fn(cfg, device)
 
     def per_image(_feat, rpn, ins, generator, prio):
         anchors, rpn_cls, rpn_bbox = rpn_rows(rpn)

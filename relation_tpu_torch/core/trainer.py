@@ -360,9 +360,11 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
         fixed_prefixes = tuple(cfg.network.FIXED_PARAMS)
     step_mask = trainable_mask(model, fixed_prefixes)
     rpn_rows = rpn_rows_fn(model, cfg, device)
-    rpn_loss = rpn_loss_fn(cfg)
+    rpn_loss = rpn_loss_fn(cfg, device)
     head_losses = head_losses_fn(model, cfg, stop_after=stop_after)
     cut = STOP_AFTER.index(stop_after) if stop_after else len(STOP_AFTER)
+    targets = target_constants(cfg.TRAIN.BBOX_MEANS, cfg.TRAIN.BBOX_STDS,
+                               cfg.TRAIN.BBOX_WEIGHTS, device)
 
     def proposals(rpn, im_info):
         """The image's proposals [post_N, 4] (called without gradient)."""
@@ -427,9 +429,7 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                 bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
                 bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
                 bbox_normalize=bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED),
-                bbox_means=tuple(cfg.TRAIN.BBOX_MEANS),
-                bbox_stds=tuple(cfg.TRAIN.BBOX_STDS),
-                bbox_weights=tuple(np.asarray(cfg.TRAIN.BBOX_WEIGHTS).tolist()),
+                **targets,
                 priorities=None if prio is None else prio.get("sample"))
         if stop_after == "sample":
             total = total + 1e-30 * (torch.sum(tgt["rois"])
@@ -518,11 +518,25 @@ def rpn_rows_fn(model, cfg, device) -> Callable:
     return rows
 
 
-def rpn_loss_fn(cfg) -> Callable:
+def target_constants(means, stds, weights, device) -> dict:
+    """``sample_rois``' bbox_means, bbox_stds and bbox_weights as f32
+    tensors on ``device``, made once where a step is built: a tensor made
+    from host values inside the step is a blocking copy to the card an
+    image."""
+    return {k: torch.tensor([float(x) for x in v], dtype=torch.float32,
+                            device=device)
+            for k, v in (("bbox_means", means), ("bbox_stds", stds),
+                         ("bbox_weights", weights))}
+
+
+def rpn_loss_fn(cfg, device) -> Callable:
     """loss(anchors, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
     generator, priorities) -> (cls loss, bbox loss, accuracy): anchor
     targets (``priorities`` the (fg, bg) uniform vectors, or None to draw
-    from ``generator``) and the RPN losses of one image."""
+    from ``generator``) and the RPN losses of one image on ``device``."""
+    bbox_weights = torch.tensor(tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
+                                dtype=torch.float32, device=device)
+
     def loss(anchors, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
              generator, priorities):
         label, btgt, bwt = anchor_targets(
@@ -532,8 +546,7 @@ def rpn_loss_fn(cfg) -> Callable:
             positive_overlap=float(cfg.TRAIN.RPN_POSITIVE_OVERLAP),
             negative_overlap=float(cfg.TRAIN.RPN_NEGATIVE_OVERLAP),
             clobber_positives=bool(cfg.TRAIN.RPN_CLOBBER_POSITIVES),
-            bbox_weights=tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
-            priorities=priorities)
+            bbox_weights=bbox_weights, priorities=priorities)
         cls_loss, bbox_loss = rpn_losses(
             rpn_cls, rpn_bbox, label, btgt, bwt, int(cfg.TRAIN.RPN_BATCH_SIZE),
             sigma=float(cfg.TRAIN.rpn_loss_scale))
@@ -552,8 +565,11 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     branch out; 'lnms_embed' and 'lnms_attn' cut it inside the head (its
     probes, run inside the recomputed branch under TPU.LNMS_REMAT),
     'lnms_score' and 'lnms_target' after it (make_train_step)."""
-    threshes = tuple(np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float,
-                                   sep=","))
+    # made once here, on the model's device (see target_constants)
+    threshes = torch.tensor(
+        np.fromstring(cfg.network.NMS_TARGET_THRESH, dtype=float,
+                      sep=",").tolist(),
+        dtype=torch.float32, device=next(model.parameters()).device)
     ohem = bool(cfg.TRAIN.ENABLE_OHEM)
     learn_nms = bool(cfg.TRAIN.LEARN_NMS) and stop_after != "head"
     remat = bool(cfg.TPU.get("LNMS_REMAT", False))

@@ -20,7 +20,8 @@ from relation_tpu_torch.models.relation import Dense, RelationModule
 from relation_tpu_torch.models.rpn import RPNHead
 from relation_tpu_torch.ops.deform import deformable_psroi_pool
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
-from relation_tpu_torch.ops.roi_pool import roi_align_mxu, roi_pool
+from relation_tpu_torch.ops.kernels.roi_align import roi_align_levels
+from relation_tpu_torch.ops.roi_pool import roi_pool
 
 
 class RelationRCNN(nn.Module):
@@ -42,8 +43,8 @@ class RelationRCNN(nn.Module):
         pool feeds the zero-initialised ``offset`` FC, whose output steers a
         second pool); ``dcn_pool_dtype`` is the dtype both pools run in.
         ``roi_method`` pools the plain head's ROIs: "align" (ROIAlign,
-        ``roi_align_mxu``) or "pool" (exact MXNet ROIPooling, ``roi_pool``;
-        TPU.ROI_METHOD).
+        ``roi_align_levels`` with one level) or "pool" (exact MXNet
+        ROIPooling, ``roi_pool``; TPU.ROI_METHOD).
         ``lnms_allow_pallas`` and ``compact_classes`` pick the learned-NMS
         attention's branch (LearnNMSHead, TPU.LNMS_ATTN and
         TPU.NMS_COMPACT_CLASSES)."""
@@ -122,7 +123,7 @@ class RelationRCNN(nn.Module):
         elif self.roi_method == "pool":
             pooled = roi_pool(reduced_feat, rois, scale, 7)
         else:
-            pooled = roi_align_mxu(reduced_feat, rois, scale, 7)
+            pooled = roi_align_levels([reduced_feat], [scale], rois, 7)
         flat = pooled.reshape(pooled.shape[0], -1).float()
         if pool_only:
             return flat

@@ -13,7 +13,8 @@ of relation_tpu/models/fpn.py (reference symbols/resnet_v1_101_rcnn_fpn*.py).
   only (or by exact ROIPooling, ``roi_method='pool'``). The JAX package
   pools every ROI at all four levels and selects with a one-hot
   contraction, a TPU static-shape workaround; the selection is exact, so
-  the pooled features are the same.
+  the pooled features are the same (the port's plain version pools at every
+  level and selects too; its kernel samples each ROI's own level only).
 
 Public methods keep the JAX package's layouts so the tests compare like with
 like: pyramid levels [h, w, 256] and RPN outputs in the raw conv layout
@@ -34,7 +35,8 @@ from relation_tpu_torch.models.rpn import RPNHead, decode_level
 from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
 from relation_tpu_torch.ops.nms import nms_topk_presorted
-from relation_tpu_torch.ops.roi_pool import roi_align_mxu, roi_pool
+from relation_tpu_torch.ops.kernels.roi_align import roi_align_levels, roi_levels
+from relation_tpu_torch.ops.roi_pool import roi_pool
 from relation_tpu_torch.utils import trace
 
 FPN_STRIDES = (64, 32, 16, 8, 4)          # P6..P2, reference output order
@@ -95,20 +97,22 @@ class FPNNeck(nn.Module):
 def roi_level_dispatch(rois: torch.Tensor) -> torch.Tensor:
     """feat_id in {0, 1, 2, 3} -> strides (4, 8, 16, 32) (reference
     core/rcnn.py:55): clip(floor(2 + log2(sqrt(w*h)/224)), 0, 3)."""
-    w = rois[:, 2] - rois[:, 0] + 1.0
-    h = rois[:, 3] - rois[:, 1] + 1.0
-    s = torch.sqrt(torch.clamp_min(w * h, 1e-6))
-    fid = torch.floor(2.0 + torch.log2(s / 224.0))
-    return torch.clamp(fid, 0, 3).to(torch.int32)
+    return roi_levels(rois, len(DISPATCH_STRIDES))
 
 
 def pool_pyramid(pyramid, rois: torch.Tensor, pooled_size: int = 7,
                  roi_method: str = "align"):
     """7x7 ROIAlign (``roi_method='align'``) or exact ROIPooling ('pool')
     of every ROI at its dispatch level: pyramid {stride: [h, w, C]}, rois
-    [R, 4] -> [R, P, P, C]. The ROIs are grouped by level (one host read of
-    the four counts), pooled level by level and put back in their order."""
-    pool = roi_pool if roi_method == "pool" else roi_align_mxu
+    [R, 4] -> [R, P, P, C]. ROIAlign is one call over the four levels that
+    reads nothing back to the host (on the card one kernel launch picks each
+    ROI's level; ops/kernels/roi_align.py). ROIPooling groups the ROIs by
+    level (one host read of the four counts), pools level by level and puts
+    them back in their order."""
+    if roi_method != "pool":
+        return roi_align_levels([pyramid[s] for s in DISPATCH_STRIDES],
+                                [1.0 / s for s in DISPATCH_STRIDES], rois,
+                                pooled_size)
     fid = roi_level_dispatch(rois)
     order = torch.argsort(fid, stable=True)
     trace.count("host_read.fpn_level_counts")
@@ -116,8 +120,8 @@ def pool_pyramid(pyramid, rois: torch.Tensor, pooled_size: int = 7,
     parts, lo = [], 0
     for s, n in zip(DISPATCH_STRIDES, counts):
         if n:
-            parts.append(pool(pyramid[s], rois[order[lo:lo + n]], 1.0 / s,
-                              pooled_size))
+            parts.append(roi_pool(pyramid[s], rois[order[lo:lo + n]], 1.0 / s,
+                                  pooled_size))
         lo += n
     pooled = torch.cat(parts)
     out = torch.empty_like(pooled)

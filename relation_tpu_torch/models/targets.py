@@ -15,6 +15,11 @@ streams differ).
 
 Ground-truth boxes arrive padded to a fixed count with a validity mask;
 padded ROI rows get label -1, which the valid-normalised losses ignore.
+
+The constant vectors (bbox means, stds and weights, the learned-NMS target
+thresholds) may be tuples or f32 tensors on the boxes' device; the train
+steps hand tensors made once, since a tensor made here from host values is
+a blocking copy to the card on every call.
 """
 
 from __future__ import annotations

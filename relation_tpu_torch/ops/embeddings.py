@@ -12,9 +12,10 @@ def _sinusoid(x: torch.Tensor, feat_dim: int, num_fields: int,
     """x: [..., num_fields] -> [..., feat_dim]; per field sin block then cos block."""
     per = feat_dim // (2 * num_fields)
     feat_range = torch.arange(per, dtype=torch.float32, device=x.device)
-    dim_mat = torch.pow(torch.tensor(wave_length, dtype=torch.float32,
-                                     device=x.device),
-                        (2.0 * num_fields / feat_dim) * feat_range)
+    # filled on the device: a tensor made from the host value would be a
+    # blocking copy to the card
+    base = torch.full((), wave_length, dtype=torch.float32, device=x.device)
+    dim_mat = torch.pow(base, (2.0 * num_fields / feat_dim) * feat_range)
     div = x[..., None] / dim_mat
     emb = torch.cat([torch.sin(div), torch.cos(div)], dim=-1)
     return emb.reshape(x.shape[:-1] + (feat_dim,))

@@ -36,9 +36,14 @@ def _frequencies(wave_length: float = 1000.0) -> np.ndarray:
     return (1.0 / np.power(wave_length, (8.0 / 64.0) * k)).astype(np.float32)
 
 
+# the plain versions' copy, made once: they run on the CPU, where .to() of a
+# CPU tensor is the tensor itself (no tensor built from host data a call)
+_FREQS = torch.from_numpy(_frequencies())
+
+
 def _trig(pos_t: torch.Tensor, scale: float) -> torch.Tensor:
     """[C, 4, N, M] -> the sinusoid embedding [C, 64, N, M]."""
-    freqs = torch.as_tensor(_frequencies(), device=pos_t.device)
+    freqs = _FREQS.to(pos_t.device)
     div = pos_t[:, :, None, :, :] * scale * freqs[None, None, :, None, None]
     emb = torch.cat([torch.sin(div), torch.cos(div)], dim=2)   # [C, 4, 16, N, M]
     C, _, _, N, M = emb.shape
@@ -82,7 +87,7 @@ def geom_bias_bwd_reference(pos_t: torch.Tensor, kernel: torch.Tensor,
     """Plain version of the backward, the formulas of the TPU kernel written
     out step by step (not autograd of the forward): cotangent gout
     [C, G, N, M] -> (d_pos [C, 4, N, M], d_W [64, G], d_b [G])."""
-    freqs = torch.as_tensor(_frequencies(), device=pos_t.device)
+    freqs = _FREQS.to(pos_t.device)
     trig = _trig(pos_t, scale)                                  # [C, 64, N, M]
     acc = torch.einsum("cfnm,fg->cgnm", trig, kernel) \
         + bias[None, :, None, None]

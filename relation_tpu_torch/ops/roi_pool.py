@@ -1,6 +1,8 @@
 """ROI feature extraction (port of relation_tpu/ops/roi_pool.py): ROIAlign
-as two interpolation contractions (``roi_align_mxu``, the default head),
-ROIAlign in its gather form (``roi_align``) and exact MXNet ROIPooling
+as two interpolation contractions (``roi_align_mxu``, the JAX package's
+head, kept as the reference of the parity tests), ROIAlign in its gather
+form (``roi_align``, the plain version of the heads' pyramid ROIAlign,
+ops/kernels/roi_align.py) and exact MXNet ROIPooling
 (``roi_pool``, TPU.ROI_METHOD='pool', the parity mode of converted reference
 weights; its kernel and plain version are in ops/kernels/roi_pool.py).
 

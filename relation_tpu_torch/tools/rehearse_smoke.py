@@ -49,7 +49,7 @@ def install_stubs() -> None:
     from relation_tpu_torch.ops.kernels import (bias_attention, bottleneck_proj,
                                                 dconv_col2im, geom_bias,
                                                 nms_attention, nms_kernel, res4,
-                                                roi_pool, stem)
+                                                roi_align, roi_pool, stem)
     torch.cuda.synchronize = lambda *a, **k: None
     chip_smoke.time_ms = lambda torch, fn, **k: (fn(), 0.0)[1]
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
@@ -87,6 +87,19 @@ def install_stubs() -> None:
         return d.reshape(H, W, C)
     roi_pool._launch, roi_pool._launch_bwd = pool_launch, pool_launch_bwd
 
+    def align_launch(levels, scales, rois, P, S):
+        with torch.no_grad():
+            return roi_align.roi_align_levels_reference(levels, scales, rois, P, S)
+
+    def align_launch_bwd(dout, rois, shapes, scales, P, S, wanted):
+        # ROIAlign is linear in the maps: the gradient needs no values
+        lv = [torch.zeros(s, requires_grad=True) for s in shapes]
+        with torch.enable_grad():
+            out = roi_align.roi_align_levels_reference(lv, scales, rois, P, S)
+            grads = torch.autograd.grad(out, lv, dout.float())
+        return [g if w else None for g, w in zip(grads, wanted)]
+    roi_align._launch, roi_align._launch_bwd = align_launch, align_launch_bwd
+
     # the model's calls, through the Functions and counters of the card path
     def counted(mod, attr, fn):
         def call(*a, **k):
@@ -108,6 +121,10 @@ def install_stubs() -> None:
     bb.stem_conv1_bn_relu = stem._Stem.apply
     det.roi_pool = fpn.roi_pool = lambda f, r, s, P=7: roi_pool._pool_kernels(
         f.contiguous(), r.detach().float().contiguous(), float(s), int(P))
+    det.roi_align_levels = fpn.roi_align_levels = (
+        lambda levels, scales, r, P=7, S=2: roi_align._RoiAlign.apply(
+            r.detach().float().contiguous(), tuple(float(x) for x in scales),
+            int(P), int(S), *[f.contiguous() for f in levels]))
     def nms_keep(bT, *a, **k):
         from relation_tpu_torch.ops.kernels import _build
         _build.tally(nms_kernel.launch_shapes,

@@ -21,7 +21,8 @@ from relation_tpu_torch.ops.kernels import (bias_attention as BA,
                                             dconv_col2im as DC, geom_bias as GB,
                                             nms_attention as NA,
                                             nms_kernel as NK, res4 as RS,
-                                            roi_pool as RP, stem as ST)
+                                            roi_align as RA, roi_pool as RP,
+                                            stem as ST)
 from tests.test_torch_helpers import NMS_EDGE_CASES, nms_edge_case
 
 pytestmark = pytest.mark.cuda
@@ -913,3 +914,136 @@ def test_roi_pool_kernel_refuses_bad_inputs(dev):
         RP.roi_pool(feat.to(torch.float16), rois, 0.25)
     with pytest.raises(ValueError):
         RP.roi_pool(feat, rois.cpu(), 0.25)
+
+
+# the FPN cell's pyramid (an 800x1024 bucket, strides 4-32) and the C4
+# head's map (38x64 at stride 16)
+PYRAMIDS = {"fpn": ((200, 256), (100, 128), (50, 64), (25, 32)),
+            "c4": ((38, 64),), "ragged": ((97, 125), (49, 63), (25, 32))}
+
+
+def _pyramid_rois(rng, R, im_h, im_w, lo=16.0, hi=900.0):
+    """R ROIs of sides lo to hi px inside an im_h x im_w image, so that a
+    pyramid's every level gets some."""
+    c = rng.uniform([0, 0], [im_w, im_h], (R, 2))
+    wh = np.exp(rng.uniform(np.log(lo), np.log(hi), (R, 2)))
+    b = np.concatenate([c - wh / 2, c + wh / 2], 1)
+    b[:, 0::2] = b[:, 0::2].clip(0, im_w - 1)
+    b[:, 1::2] = b[:, 1::2].clip(0, im_h - 1)
+    return b.astype(np.float32)
+
+
+def _pyramid_case(rng, dev, kind, C, R, dtype):
+    shapes = PYRAMIDS[kind]
+    strides = (16,) if kind == "c4" else (4, 8, 16, 32)[:len(shapes)]
+    levels = [torch.tensor(rng.randn(h, w, C).astype(np.float32),
+                           device=dev).to(dtype) for h, w in shapes]
+    im_h, im_w = shapes[0][0] * strides[0], shapes[0][1] * strides[0]
+    rois = _tens(_pyramid_rois(rng, R, im_h, im_w), dev)
+    return levels, [1.0 / s for s in strides], rois
+
+
+def _align_grads(levels, scales, rois, cot, fn):
+    """(out, grads of every level) of ``fn`` under the cotangent ``cot``."""
+    lv = [f.clone().requires_grad_() for f in levels]
+    out = fn(lv, scales, rois)
+    grads = torch.autograd.grad(out, lv, cot.to(out.dtype))
+    return out.detach(), grads
+
+
+@pytest.mark.parametrize("kind,C,R,dtype", [
+    ("fpn", 256, 1016, "float32"), ("c4", 256, 300, "float32"),
+    ("c4", 256, 300, "bfloat16"), ("ragged", 3, 37, "float32"),
+    ("ragged", 12, 50, "bfloat16")])
+def test_roi_align_kernel_matches_plain(dev, kind, C, R, dtype):
+    """The pyramid ROIAlign kernel against its plain version, forward and
+    backward, one launch of each a call. f32: the forward within 1e-5 of
+    the largest output (the same 16 taps summed in another order), every
+    level's gradient within 1e-5 of its largest (the atomics' order). bf16:
+    both sum in f32 and round once, so the forward and the gradients lie
+    within one bf16 step of the plain f32 sums (the plain version on the
+    f32 copy of the maps, under the cotangent rounded to bf16, as the
+    kernel receives it)."""
+    rng = np.random.RandomState(C + R)
+    dt = getattr(torch, dtype)
+    levels, scales, rois = _pyramid_case(rng, dev, kind, C, R, dt)
+    assert (set(RA.roi_levels(rois, len(levels)).tolist())
+            == set(range(len(levels))))
+    cot = torch.tensor(rng.randn(R, 7, 7, C).astype(np.float32), device=dev)
+    before = (RA.launches, RA.bwd_launches)
+    got, grads = _align_grads(levels, scales, rois, cot, RA.roi_align_levels)
+    torch.cuda.synchronize()
+    assert (RA.launches, RA.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dt and all(g.dtype == dt for g in grads)
+    want, want_grads = _align_grads(
+        [f.float() for f in levels], scales, rois, cot.to(dt).float(),
+        RA.roi_align_levels_reference)
+    if dtype == "float32":
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * top
+        for g, w in zip(grads, want_grads):
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    else:
+        for g, w in [(got, want)] + list(zip(grads, want_grads)):
+            assert ((g.float() - w).abs() <= w.abs() * 2.0 ** -7 + 1e-6).all()
+
+
+def test_roi_align_kernel_edge_padded_and_strided(dev):
+    """ROIs flush with the maps' far edges and past them, zero-size padding
+    and a one-cell box, with no ROI at stride 16: the forward within 1e-5
+    of the plain version's largest output, the empty level's gradient
+    exactly zero; the NCHW map read through its strided view (the kernel's
+    one-channel path) equal to the channels-last copy's result bit for
+    bit."""
+    rng = np.random.RandomState(4)
+    C = 64
+    levels, scales, _ = _pyramid_case(rng, dev, "fpn", C, 8, torch.float32)
+    rois = _tens([[900, 700, 1023, 799], [0, 0, 1023, 799], [1000, 0, 1023, 30],
+                  [0, 0, 0, 0], [0, 0, 0, 0], [5, 7, 5, 7], [10, 20, 60, 80],
+                  [100, 50, 250, 220], [0, 600, 40, 799]], dev)
+    fid = RA.roi_levels(rois, 4)
+    assert 2 not in fid.tolist() and {0, 1, 3} <= set(fid.tolist())
+    cot = torch.tensor(rng.randn(len(rois), 7, 7, C).astype(np.float32),
+                       device=dev)
+    got, grads = _align_grads(levels, scales, rois, cot, RA.roi_align_levels)
+    want, want_grads = _align_grads(levels, scales, rois, cot,
+                                    RA.roi_align_levels_reference)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert not grads[2].any()
+    for g, w in zip(grads, want_grads):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max() + 1e-30)
+    nchw = [f.permute(2, 0, 1).contiguous().permute(1, 2, 0) for f in levels]
+    assert not nchw[0].is_contiguous()
+    strided = RA._launch(nchw, scales, rois, 7, 2)
+    assert torch.equal(strided, got)
+
+
+def test_roi_align_backward_spread(dev):
+    """Two backward runs at the FPN cell's shape: the f32 atomics add in
+    another order each run, within 1e-5 of each level's largest element."""
+    rng = np.random.RandomState(5)
+    levels, scales, rois = _pyramid_case(rng, dev, "fpn", 256, 1016,
+                                         torch.float32)
+    cot = torch.tensor(rng.randn(1016, 7, 7, 256).astype(np.float32),
+                       device=dev)
+    shapes = [tuple(f.shape) for f in levels]
+    a = RA._launch_bwd(cot, rois, shapes, scales, 7, 2, [True] * 4)
+    b = RA._launch_bwd(cot, rois, shapes, scales, 7, 2, [True] * 4)
+    for x, y in zip(a, b):
+        assert float((x - y).abs().max()) <= 1e-5 * float(y.abs().max())
+
+
+def test_roi_align_kernel_refuses_bad_inputs(dev):
+    f = torch.zeros(8, 8, 4, device=dev)
+    rois = torch.zeros(3, 4, device=dev)
+    with pytest.raises(ValueError):
+        RA.roi_align_levels([f] * 5, [0.25] * 5, rois)
+    with pytest.raises(ValueError):
+        RA.roi_align_levels([f, torch.zeros(4, 4, 8, device=dev)], [0.25, 0.125],
+                            rois)
+    with pytest.raises(TypeError):
+        RA.roi_align_levels([f.half()], [0.25], rois)
+    with pytest.raises(ValueError):
+        RA.roi_align_levels([f], [0.25], rois[:, :3])
+    with pytest.raises(ValueError):
+        RA.roi_align_levels([f], [0.25], rois.cpu())

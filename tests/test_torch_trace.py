@@ -185,12 +185,22 @@ def test_client_thread_spans_reach_a_trace_of_all_threads(tiny, registry):
 
 
 def test_counters_at_the_host_reads_and_the_branch(tiny, registry):
-    """The FPN head reads its four level counts once a request, and the
+    """The FPN head's ROIAlign reads nothing back; its exact ROIPooling
+    (roi_method 'pool') reads its four level counts once a request. The
     learned-NMS relation module counts the branch it took."""
-    _, _, predict, image, im_info = tiny("fpn_learn_nms")
+    _, model, predict, image, im_info = tiny("fpn_learn_nms")
     registry.reset()
     predict(image, im_info)
     predict(image, im_info)
+    counters = registry.snapshot()["counters"]
+    assert "host_read.fpn_level_counts" not in counters
+    model.roi_method = "pool"
+    try:
+        registry.reset()
+        predict(image, im_info)
+        predict(image, im_info)
+    finally:
+        model.roi_method = "align"
     counters = registry.snapshot()["counters"]
     assert counters["host_read.fpn_level_counts"] == 2
     branches = sum(v for k, v in counters.items()

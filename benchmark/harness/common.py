@@ -1,6 +1,7 @@
 """What every driver shares: the program's config from a configuration
-file, the CPU rehearsal's small shapes, precision switches, and the
-result line."""
+file, the CPU rehearsal's small shapes, precision switches, the device's
+clock and memory, the program's span-and-counter registry, and the result
+line."""
 
 from __future__ import annotations
 
@@ -58,6 +59,47 @@ def rehearsal(config: dict, mix: dict):
              "warm_requests": 1, "trace_seconds": 1}
     m.update({k: v for k, v in small.items() if k in m})
     return c, m
+
+
+def sync(ctx) -> None:
+    if ctx["device"].type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+
+
+def max_mem(ctx) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() if ctx["device"].type == "cuda" else 0
+
+
+def reset_mem(ctx) -> None:
+    if ctx["device"].type == "cuda":
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+
+
+def program_registry(ctx):
+    """The program's span-and-counter registry (relation_tpu_torch/utils/
+    trace.py), enabled, where ``ctx["trace"]`` holds; else None, and the
+    registry stays as it is (off, as the program leaves it)."""
+    if not ctx["trace"]:
+        return None
+    from relation_tpu_torch.utils import trace as registry
+    registry.enable()
+    return registry
+
+
+def setup_snapshot(registry):
+    """The registry's snapshot of the set-up, then a reset, and the
+    registry off: the window and the first traced window then run as in an
+    untraced run, with no ``rn:`` records in the trace. None without the
+    registry."""
+    if registry is None:
+        return None
+    snap = registry.snapshot()
+    registry.reset()
+    registry.disable()
+    return snap
 
 
 def forbidden_modules() -> list:

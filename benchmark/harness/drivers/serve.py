@@ -1,4 +1,4 @@
-"""Driver of a serving cell: closed-loop clients, each a host thread with
+"""Driver of mix kind "serve": closed-loop clients, each a host thread with
 its own CUDA stream, all calling one predict function of the port
 (core/predictor.py::build_predict_fn, as entry() builds it) on one shared
 model. Each request sends a uint8 image from host memory and brings its
@@ -9,7 +9,8 @@ distinct images and has every client serve its first requests. The window
 counts the requests completed by all clients before it closes. The
 harness's copy of the weights leaves the device once the model holds them,
 so that the window's memory peak is the program's; the check makes them
-again from the seed.
+again from the seed, and the configuration's reference serves the sampled
+requests again with them.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ import time
 
 import torch
 
-from benchmark.harness import flops, trace, traffic
-from benchmark.harness.common import build_kernels, program_cfg
-from benchmark.harness.train import max_mem, reset_mem, sync
+from benchmark.harness import compare, flops, stages, trace, traffic
+from benchmark.harness.common import (build_kernels, max_mem, program_cfg,
+                                      program_registry, reset_mem,
+                                      setup_snapshot, sync)
 from benchmark.harness.weights import make_weights
-from benchmark.reference import detector as ref
+
+KIND = "serve"             # the suffix of the per-layer metrics it reports
 
 
 class Clients:
@@ -78,9 +81,10 @@ def run(ctx, t_start: float) -> dict:
     from relation_tpu_torch.core.trainer import build_model
     cj, mix, dev = ctx["config"], ctx["mix"], ctx["device"]
     cuda = dev.type == "cuda"
+    registry = program_registry(ctx)
     cfg = program_cfg(cj, ctx["rehearse"])
     build_kernels(dev)
-    W = make_weights(cj, ctx["seed"], dev)
+    W = make_weights(ctx["reference"], cj, ctx["seed"], dev)
     model = build_model(cfg, device=dev)
     model.load_state_dict(W, strict=True)
     del W
@@ -104,6 +108,7 @@ def run(ctx, t_start: float) -> dict:
     sync(ctx)
     setup_s = time.perf_counter() - t_start
     peak_setup = max_mem(ctx)
+    program_setup = setup_snapshot(registry)
     reset_mem(ctx)
     t0 = time.perf_counter()
     log = clients.serve(t0 + ctx["seconds"])
@@ -111,22 +116,22 @@ def run(ctx, t_start: float) -> dict:
     close = t0 + ctx["seconds"]
     done = [r for r in log if r[3] <= close]
     lat = sorted(1e3 * (r[3] - r[2]) for r in done)
-    out = {"setup_s": setup_s, "images": len(done), "window_s": ctx["seconds"],
-           "peak_window": max_mem(ctx), "attempted": len(log),
-           "failed": 0, "latency_ms": lat}
+    out = {"kind": KIND, "setup_s": setup_s, "images": len(done),
+           "window_s": ctx["seconds"], "peak_window": max_mem(ctx),
+           "attempted": len(log), "failed": 0, "latency_ms": lat}
     out["peak"] = max(peak_setup, out["peak_window"])
     if ctx["trace"]:
+        out["program_setup"] = program_setup
         spans = trace.install_spans(model)
         prof, twall, tlog = trace.profile(clients.serve,
                                           float(mix["trace_seconds"]), cuda)
         trace.remove_spans(spans)
         out["trace"] = dict(trace.reduce(prof), window_s=twall, images=len(tlog))
-        out["flops_per_image"] = flops.serve_flops(cj)
-        t = cj["test"]
-        out["attn_least_s"] = flops.attention_least_s(
-            cj, int(t["rpn_post_nms_top_n"]), int(t["rpn_post_nms_top_n"]),
-            int(t["first_n"]))
         del prof
+        out["trace"]["stages"], out["program"] = stages.window(
+            registry, clients.serve, float(mix["trace_seconds"]), cuda, len)
+        out["flops_per_image"], out["attn_least_s"] = work_counts(
+            ctx["reference"], cj, mix)
     del model, predict, clients.predict
     gc.collect()
     if cuda:
@@ -139,16 +144,26 @@ def run(ctx, t_start: float) -> dict:
     return out
 
 
+def work_counts(ref, config, mix):
+    """(operations, least attention seconds) of one request over the
+    configuration's ``rpn_post_nms_top_n`` proposals."""
+    t = config["test"]
+    R = int(t["rpn_post_nms_top_n"])
+    return (ref.serve_flops(config),
+            flops.attention_least_s(config, R, R, int(t["first_n"])))
+
+
 def judge(ctx, sample, images, infos) -> dict:
     """The reference serves each sampled request again (summarise), with
     the weights made again from the seed."""
     limits = ctx["config"]["limits"]["serve"]
-    dev = ctx["device"]
-    W = make_weights(ctx["config"], ctx["seed"], dev)
+    dev, ref = ctx["device"], ctx["reference"]
+    W = make_weights(ref, ctx["config"], ctx["seed"], dev)
     with torch.no_grad():
-        got = [ref.dets_gap(dets, ref.predict(W, ctx["config"], images[j].to(dev),
-                                              infos[j].to(dev)).cpu(),
-                            int(limits["top"]))
+        got = [compare.dets_gap(dets, ref.predict(W, ctx["config"],
+                                                  images[j].to(dev),
+                                                  infos[j].to(dev)).cpu(),
+                                int(limits["top"]))
                for _, j, _, _, dets in sample]
     return summarise(got, limits)
 

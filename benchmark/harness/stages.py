@@ -1,14 +1,17 @@
 """A traced window's profiler trace reduced to the program's own stages.
 
-The program's spans (relation_tpu_torch/utils/trace.py, enabled) sit in
-the trace as ``rn:<stage>`` records on the host threads that opened them:
-``predict`` and ``predict.{input,trunk_rpn,proposals,head,tail}`` of a
-request, ``step`` and ``step.{input,trunk_rpn,rois,backward,allreduce,
-update}`` of a train step. At each moment the stage of a thread is its
-innermost open span, and the stage of the process the innermost span open
-on any thread (the one opened last); ``outside`` where none is open (the
-caller's code, such as a client's ``.cpu()`` of the detections). For each
-stage:
+A traced run enables the program's registry for its set-up and for a
+window of its own, traced after the first (``window``, below), so that the
+program's spans (relation_tpu_torch/utils/trace.py) sit in that trace as
+``rn:<stage>`` records on the host threads that opened them: ``predict``
+and ``predict.{input,trunk_rpn,proposals,head,tail}`` of a request,
+``step`` and ``step.{input,trunk_rpn,rois,backward,allreduce,update}`` of
+a train step. The first traced window, which the benchmark's own spans and
+``idle_share`` read, runs with the registry off, as an untraced run does.
+At each moment the stage of a thread is its innermost open span, and the
+stage of the process the innermost span open on any thread (the one opened
+last); ``outside`` where none is open (the caller's code, such as a
+client's ``.cpu()`` of the detections). For each stage:
 
 - host_ms: the time it was a thread's stage, summed over threads
   (``outside``: the time no stage was open on any thread);
@@ -33,16 +36,14 @@ span opened last, so idle time is not split between concurrent requests.
 from __future__ import annotations
 
 import bisect
+import gc
 
 import torch
 
-from benchmark.harness.trace import SYNC_CALLS, merged
+from benchmark.harness.trace import ANNOTATIONS, SYNC_CALLS, merged, profile
 
 STAGE_PREFIX = "rn:"
 OUTSIDE = "outside"
-# device-side copies of the program's and the benchmark's records (the
-# profiler's annotations on the device's timeline), not device work
-ANNOTATIONS = (STAGE_PREFIX, "pb:")
 
 
 def is_device(e) -> bool:
@@ -187,27 +188,59 @@ def reduce(events, window=None) -> dict:
             "linked": linked / max(len(dev), 1), "stages": stages}
 
 
+def window(registry, run_window, seconds: float, cuda: bool, images):
+    """The stage window: ``run_window`` traced for ``seconds`` with the
+    registry on, then off again. Returns (its stage reduction with
+    ``images``, the images the window served, ``images(what run_window
+    returned)``, and ``window_s``, its length on the host's clock; the
+    registry's snapshot of the window). What the first traced window left
+    to the garbage collector is collected first, not inside this one."""
+    gc.collect()
+    registry.reset()
+    registry.enable()
+    try:
+        prof, wall, got = profile(run_window, seconds, cuda)
+    finally:
+        registry.disable()
+    snap = registry.snapshot()
+    registry.reset()
+    st = dict(reduce(prof.events()), images=images(got), window_s=wall)
+    return st, snap
+
+
+def _window(out):
+    """The stage window's reduction, where its trace has device events and
+    images; else None."""
+    st = (out.get("trace") or {}).get("stages")
+    if not st or st["busy_ms"] <= 0 or not st.get("images"):
+        return None
+    return st
+
+
 def per_image(out, stage: str, key: str):
     """``key`` of ``stage`` a traced image, read from the run's summary;
     None where the trace has no device events or no stages. ``stage`` is a
     step's or a request's stage without its prefix ("input", "trunk_rpn",
     ...), or "outside"."""
-    t = out.get("trace") or {}
-    st = t.get("stages")
-    if not st or not st["stages"] or st["busy_ms"] <= 0 or not t.get("images"):
+    st = _window(out)
+    if st is None or not st["stages"]:
         return None
     if stage != OUTSIDE:
         stage = ("step." if out["kind"] == "train" else "predict.") + stage
-    return st["stages"].get(stage, {}).get(key, 0.0) / t["images"]
+    return st["stages"].get(stage, {}).get(key, 0.0) / st["images"]
 
 
 def program(out, which: str = "program"):
-    """The registry's snapshot of the traced window ("program") or of the
-    set-up ("program_setup"), where the trace has device events."""
-    t = out.get("trace") or {}
-    if not t.get("busy_s") or not t.get("images"):
-        return None
-    return out.get(which)
+    """The registry's snapshot of the stage window ("program") or of the
+    set-up ("program_setup"), where the stage window's trace has device
+    events."""
+    return None if _window(out) is None else out.get(which)
+
+
+def images(out) -> int:
+    """The images of the stage window, over which the registry's window
+    counts are taken."""
+    return out["trace"]["stages"]["images"]
 
 
 def table(st: dict, images: int) -> str:

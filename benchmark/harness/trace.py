@@ -5,7 +5,8 @@ Spans are the benchmark's own: the bound methods and module forwards named
 in SPANS are wrapped on the model instance in ``torch.profiler.
 record_function`` for the traced window only. A span's device time is the
 kernels launched under it (the forward; a train step's backward runs on
-autograd's own thread, outside every span).
+autograd's own thread, outside every span). The program's own spans
+(``rn:``, relation_tpu_torch/utils/trace.py) are read by harness/stages.py.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import time
 import torch
 
 PREFIX = "pb:"
+# the profiler's copies of the benchmark's and the program's records on the
+# device's timeline: annotations, not device work
+ANNOTATIONS = (PREFIX, "rn:")
 # span name -> attribute paths on the model that open it
 SPANS = {
     "pb:trunk_rpn": ("features_and_rpn",),
@@ -99,7 +103,7 @@ def reduce(prof) -> dict:
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     dev = [e for e in events if e.device_type == cuda
-           and not e.name.startswith(PREFIX)]
+           and not e.name.startswith(ANNOTATIONS)]
     busy = merged((e.time_range.start, e.time_range.end) for e in dev)
     busy_us = sum(e - s for s, e in busy)
     spans = {}

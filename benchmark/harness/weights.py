@@ -1,7 +1,8 @@
 """Seeded random weights, made on the device in a few large draws.
 
-Every leaf of the reference's ``param_specs`` list gets a value from one
-normal draw of a ``torch.Generator`` seeded with the run's seed: trunk
+Every leaf of the ``param_specs`` list of the configuration's reference
+gets a value from one normal draw of a ``torch.Generator`` seeded with the
+run's seed: trunk
 convolution kernels He-normal (std sqrt(2/fan in)), the neck's and the
 RPN's lecun-normal (std 1/sqrt(fan in)), dense kernels std 0.01, biases
 zero (the learned-NMS logit's -3). BatchNorm holds the scale a trained
@@ -9,11 +10,13 @@ trunk has: the stem's scale 1/64 takes the pixels (std about 60) to unit
 size, each residual branch's last scale 0.2 keeps the stream from growing
 block after block, every other BatchNorm is the identity. So activations
 stay of order one, as in a trained network, and SGD at the YAML's rate
-does not diverge in the first steps. The four
-prediction layers are then scaled by the configuration's stored factors,
-which bring their outputs to a trained detector's spread (RPN and class
-logits std 2, box deltas std 0.2): without them every proposal is clipped
-to the whole image. ``benchmark/tools/calibrate.py`` measures the factors.
+does not diverge in the first steps. The layers named in the
+configuration's ``init.head_scale`` are then scaled by its stored factors:
+the four prediction layers' bring their outputs to a trained detector's
+spread (RPN and class logits std 2, box deltas std 0.2), without which
+every proposal is clipped to the whole image, and
+``benchmark/tools/calibrate.py`` measures them; a configuration can scale
+any other ``<layer>.weight`` there.
 The program and the reference are handed the same tensors.
 """
 
@@ -23,14 +26,13 @@ import math
 
 import torch
 
-from benchmark.reference.detector import param_specs
-
 BN_ONES = ("gamma", "moving_var")
 
 
-def make_weights(config: dict, seed: int, device) -> dict:
-    """{name: f32 tensor on ``device``} for ``config``'s detector."""
-    specs = param_specs(config["arch"])
+def make_weights(ref, config: dict, seed: int, device) -> dict:
+    """{name: f32 tensor on ``device``} for ``config``'s detector, whose
+    leaves its reference module ``ref`` lists."""
+    specs = ref.param_specs(config["arch"])
     drawn = [(n, s) for n, s in specs
              if n.endswith(".weight") or n.endswith("_weight")]
     total = sum(math.prod(s) for _, s in drawn)

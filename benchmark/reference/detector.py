@@ -12,15 +12,19 @@ and takes from it nothing but the outputs it judges.
 Parameters are one flat dict {name: tensor}; ``param_specs`` lists the
 names and shapes. The harness makes the weights from the seed by that list
 and hands the same tensors to both sides.
+
+The reference of every configuration that names none (its interface:
+benchmark/reference/__init__.py); a reference of another detector can
+import its trunk, relation and learned-NMS functions from here.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from benchmark.harness.flops import count_flops, meta_params
 
 NEG_INF = -1e10
 FPN_STRIDES = (64, 32, 16, 8, 4)        # P6..P2: the order levels are merged
@@ -703,64 +707,119 @@ def train_steps(P0, cfg, batches, steps):
     return losses, first, {k: P[k].detach() for k in names}
 
 
-def dets_gap(prog, ref, top: int, box_tol: float = 0.01):
-    """A request's first ``top`` detections against the reference's: each
-    is matched to the same-class reference detection, among those within
-    IoU 1 - ``box_tol`` of it, whose score is nearest (duplicate boxes of
-    one class, as the learned-NMS head scores at several ranks, make the
-    box alone ambiguous). Returns (detections compared, detections with no
-    such reference detection, the largest absolute score difference of the
-    others, the sum of their squared score differences, the sum of their
-    squared reference scores). When the counts of real detections differ,
-    every detection compared is unmatched."""
-    real_p = prog[:, 0] >= 0
-    real_r = ref[:, 0] >= 0
-    n = min(top, int(real_p.sum()))
-    if int(real_p.sum()) != int(real_r.sum()):
-        return max(n, 1), max(n, 1), 0.0, 0.0, 0.0
-    if n == 0:
-        return 0, 0, 0.0, 0.0, 0.0
-    p, r = prog[:n], ref[real_r]
-    near = ((iou(p[:, 2:6], r[:, 2:6]) >= 1.0 - box_tol)
-            & (p[:, None, 0] == r[None, :, 0]))
-    dist = torch.where(near, (p[:, None, 1] - r[None, :, 1]).abs(),
-                       torch.full((n, r.shape[0]), float("inf")))
-    gap, j = dist.min(dim=1)
-    matched = torch.isfinite(gap)
-    gap = gap[matched]
-    widest = float(gap.max()) if gap.numel() else 0.0
-    return (n, int((~matched).sum()), widest, float((gap ** 2).sum()),
-            float((r[j, 1][matched] ** 2).sum()))
+# --------------------------------------------------------------------------
+# operation counts (benchmark/harness/flops.py: meta tensors, the counter)
+# --------------------------------------------------------------------------
+
+def _head_inputs(R):
+    pooled = torch.empty((R, 7, 7, 256), device="meta")
+    rois = torch.empty((R, 4), device="meta")
+    return pooled, rois
 
 
-def nongrad_floor(first):
-    """Leaves whose reference gradient norm is under a thousandth of the
-    median leaf's: moved by weight decay and round-off alone."""
-    norms = {k: float(v.norm()) for k, v in first.items()}
-    med = float(np.median(list(norms.values())))
-    return {k for k, n in norms.items() if n < 1e-3 * med}, norms, med
+def serve_flops(config) -> int:
+    """Operations of one request: trunk, RPN, head over the proposals, the
+    learned-NMS head over every class."""
+    a, t = config["arch"], config["test"]
+    H, W = config["images"]["bucket"]
+    P = meta_params(param_specs(a))
+    R, F_ = int(t["rpn_post_nms_top_n"]), int(t["first_n"])
+    info = torch.tensor([H, W, 1.0], device="meta")
+    fc = (("roi_pool_fc1", "roi_pool_fc2") if a["trunk"] == "fpn"
+          else ("fc_new_1", "fc_new_2"))
+
+    def run():
+        x = torch.empty((1, 3, H, W), device="meta")
+        outs = trunk(P, x, a["trunk"] == "fpn")
+        if a["trunk"] == "fpn":
+            for lvl in fpn_neck(P, outs).values():
+                rpn_head(P, lvl)
+        else:
+            rpn_head(P, outs[4])
+            _conv(P, "conv_new_1", outs[5])
+        pooled, rois = _head_inputs(R)
+        cls, box, fc2 = head(P, fc, pooled, rois, R)
+        learn_nms(P, cls, box, rois, fc2, info, F_, a["bbox_means"],
+                  a["bbox_stds"])
+    with torch.no_grad():
+        return count_flops(run)
 
 
-def leaf_gaps(prog_norms: dict, ref_norms: dict, skip=()) -> dict:
-    """{leaf: |‖prog‖ - ‖ref‖| / max(‖ref‖, median leaf ‖ref‖)}."""
-    keys = [k for k in ref_norms if k not in skip]
-    med = float(np.median([ref_norms[k] for k in keys])) if keys else 0.0
-    return {k: abs(prog_norms[k] - ref_norms[k]) / max(ref_norms[k], med, 1e-30)
-            for k in keys}
+def train_flops(config, rois_per_image: int, gt_per_image: int) -> int:
+    """Operations of one image of the FPN RCNN step and the backward of
+    every trainable leaf's path: trunk and neck (no RPN: the step has no
+    RPN loss), the head over the ROIs and ground truth and the learned-NMS
+    branch over the first ``nongt`` rows."""
+    a, tr = config["arch"], config["train"]
+    H, W = config["images"]["bucket"]
+    P = meta_params(param_specs(a),
+                    lambda name: trainable(name, tr["fixed_params"]))
+    R = rois_per_image + gt_per_image
+    nongt = min(int(tr["rpn_post_nms_top_n"]), rois_per_image)
+    info = torch.tensor([H, W, 1.0], device="meta")
+
+    def run():
+        x = torch.empty((1, 3, H, W), device="meta")
+        maps = list(fpn_neck(P, trunk(P, x, True, 2)).values())
+        pooled, rois = _head_inputs(R)
+        cls, box, fc2 = head(P, ("roi_pool_fc1", "roi_pool_fc2"), pooled,
+                             rois, nongt)
+        multi, _, _ = learn_nms(P, cls[:nongt], box[:nongt], rois[:nongt],
+                                fc2[:nongt], info, int(tr["first_n"]),
+                                a["bbox_means"], a["bbox_stds"])
+        loss = cls.sum() + box.sum() + multi.sum() + sum(v.sum() for v in maps)
+        loss.backward()
+    return count_flops(run)
 
 
-def worst_leaf_gap(prog_norms: dict, ref_norms: dict, skip=()):
-    """(the worst leaf's gap, its name) of ``leaf_gaps``."""
-    gaps = leaf_gaps(prog_norms, ref_norms, skip)
-    at = max(gaps, key=gaps.get) if gaps else ""
-    return (gaps[at] if at else 0.0), at
+# --------------------------------------------------------------------------
+# calibration (benchmark/tools/calibrate.py)
+# --------------------------------------------------------------------------
 
-
-def median_leaf_gap(prog_norms: dict, ref_norms: dict, skip=()) -> float:
-    """The median over leaves of ``leaf_gaps``."""
-    gaps = list(leaf_gaps(prog_norms, ref_norms, skip).values())
-    return float(np.median(gaps)) if gaps else 0.0
-
-
-def math_rel(a: float, b: float) -> float:
-    return abs(a - b) / max(abs(b), 1e-12) if math.isfinite(a) else float("inf")
+def calibration_outputs(P, cfg, image_u8, im_info):
+    """The four prediction layers' outputs over one request, bias removed,
+    in the order a request runs them: yields (layer, output) for
+    ``rpn.rpn_cls_score`` and ``rpn.rpn_bbox_pred`` (every level's every
+    cell) and ``cls_score`` and ``bbox_pred`` (every proposal). Each output
+    is computed when asked for, with the weights in ``P`` then: a caller
+    that rescales a layer's weight before asking for the next has the
+    later layers see it."""
+    a = cfg["arch"]
+    x = image_from_u8(image_u8, im_info, a["pixel_means"])
+    outs = trunk(P, x, a["trunk"] == "fpn")
+    feats = (list(fpn_neck(P, outs).values()) if a["trunk"] == "fpn"
+             else [outs[4]])
+    for layer in ("rpn.rpn_cls_score", "rpn.rpn_bbox_pred"):
+        hid = [torch.relu(_conv(P, "rpn.rpn_conv_3x3", f, 1, 1)) for f in feats]
+        yield layer, torch.cat([_conv(P, layer, h).flatten(1)
+                                - P[f"{layer}.bias"][:, None] for h in hid], 1)
+    # the head's input: the ROIs the RPN, as scaled now, proposes
+    raw = []
+    A = int(a["num_anchors"])
+    t = cfg["test"]
+    top = (int(t["rpn_pre_nms_top_n"]), int(t["rpn_post_nms_top_n"]),
+           float(t["rpn_nms_thresh"]))
+    if a["trunk"] == "fpn":
+        levels = dict(zip(FPN_STRIDES, feats))
+        for s in FPN_STRIDES:
+            cls, bb = rpn_head(P, levels[s])
+            cc = cls[0].permute(2, 0, 1)
+            raw.append((torch.sigmoid(cc[1::2] - cc[0::2]),
+                        bb[0].permute(2, 0, 1).reshape(A, 4, *cc.shape[1:]), s))
+        rois = proposals(raw, im_info, top, (a["anchor_ratios"], a["anchor_scales"]))
+        pooled = pool_levels({s: levels[s][0].permute(1, 2, 0)
+                              for s in DISPATCH_STRIDES}, rois)
+        fc = ("roi_pool_fc1", "roi_pool_fc2")
+    else:
+        cls, bb = rpn_head(P, feats[0])
+        h, w = cls.shape[1:3]
+        fg = torch.softmax(cls[0].reshape(h, w, A, 2), -1)[..., 1].permute(2, 0, 1)
+        d = bb[0].reshape(h, w, A, 4).permute(2, 3, 0, 1)
+        rois = proposals([(fg, d, 16)], im_info, top,
+                         (a["anchor_ratios"], a["anchor_scales"]))
+        feat = torch.relu(_conv(P, "conv_new_1", outs[5]))[0].permute(1, 2, 0)
+        pooled = roi_align(feat, rois, 1.0 / 16)
+        fc = ("fc_new_1", "fc_new_2")
+    _, _, fc2 = head(P, fc, pooled, rois, rois.shape[0])
+    for layer in ("cls_score", "bbox_pred"):
+        yield layer, F.linear(fc2, P[f"{layer}.weight"])

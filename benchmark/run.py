@@ -2,14 +2,17 @@
 
     python benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Run from the root of a checkout. The cell, its configuration, its traffic
-mix and its metrics are found by name from BENCHMARK.json
+Run from the root of a checkout. The cell, its configuration and that
+configuration's plain reference, its traffic mix, the mix kind's driver
+and its metrics are found by name from BENCHMARK.json
 (benchmark/harness/cells.py). The run makes its weights and inputs from the
 seed, warms every shape, measures for ``--seconds``, then checks what the
-timed path produced against the plain reference (benchmark/reference/),
-prints the numbers compared with their limits as the last lines of standard
+timed path produced against the reference (benchmark/reference/), prints
+the numbers compared with their limits as the last lines of standard
 error, and prints one JSON line last on standard output. ``--trace 1``
-reports the per-layer metrics instead of the end-to-end ones.
+reports the per-layer metrics instead of the end-to-end ones, and turns
+the program's span-and-counter registry on for the set-up and for a traced
+window of its own (benchmark/harness/stages.py).
 
 ``--rehearse`` runs the cell at a tiny size on the CPU with the kernels'
 plain versions (the tests' mode; its numbers are no device numbers), and
@@ -57,7 +60,9 @@ def _power_limit() -> str | None:
         return None
 
 
-def main(argv=None) -> int:
+def main(argv=None, keep=None) -> int:
+    """One run; the driver's summary is appended to the list ``keep``
+    where one is given (the tools')."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -88,21 +93,18 @@ def main(argv=None) -> int:
         mix = dict(mix, **{key: json.loads(value)})
     set_precision(config["precision"])
     device = torch.device("cpu" if args.rehearse else "cuda")
-    ctx = {"config": config, "mix": mix, "seed": args.seed, "device": device,
-           "seconds": args.seconds, "trace": bool(args.trace),
-           "rehearse": args.rehearse, "fault": args.fault}
-    if mix["kind"] == "train_rcnn":
-        from benchmark.harness import train as driver
-    elif mix["kind"] == "serve":
-        from benchmark.harness import serve as driver
-    else:
-        raise ValueError(f"mix kind {mix['kind']!r}")
+    ctx = {"config": config, "reference": spec["reference"], "mix": mix,
+           "seed": args.seed, "device": device, "seconds": args.seconds,
+           "trace": bool(args.trace), "rehearse": args.rehearse,
+           "fault": args.fault}
+    driver = cells.driver(mix["kind"], ROOT)
     out = driver.run(ctx, T_START)
+    if keep is not None:
+        keep.append(out)
     bad = forbidden_modules()
     if bad:
         print(f"run.py: JAX or the JAX package was loaded: {bad}", file=sys.stderr)
         return 3
-    out["kind"] = "train" if mix["kind"] == "train_rcnn" else "serve"
     metrics = {}
     for m in (spec["per_layer"] if args.trace else spec["end_to_end"]):
         value = cells.metric_reader(m["name"], ROOT)(out)

@@ -27,8 +27,7 @@ def card():
 def test_control_fails_a_limit(card, workload):
     spec = cells.resolve(workload)
     config, mix = spec["config"], spec["mix"]
-    kind = mix["kind"]
-    if kind.startswith("train"):
+    if cells.driver(mix["kind"]).KIND == "train":
         got = control.train_readings(config, mix, 7, card)
         limits = config["limits"]["train"]
     else:

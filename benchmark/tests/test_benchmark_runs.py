@@ -1,9 +1,11 @@
 """run.py end to end on the CPU at a tiny size with the kernels' plain
 versions: the contract's last line with every metric named, the checks
-last; the faults it must catch; no JAX anywhere."""
+last; the program's stages in a traced run; the faults it must catch; no
+JAX anywhere."""
 
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 
@@ -48,6 +50,74 @@ def test_per_layer_line(workload):
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
+# what a traced run adds to its summary from the program's registry
+_SUMMARY = """
+import json, sys
+sys.path.insert(0, '.')
+from benchmark import run
+from benchmark.harness import stages
+from relation_tpu_torch.utils import trace as registry
+seen = []
+stage_window = stages.window
+def window(*a, **k):
+    seen.append(registry.snapshot()["spans"])
+    return stage_window(*a, **k)
+stages.window = window
+keep = []
+rc = run.main(sys.argv[1:], keep=keep)
+out = keep[0] if keep else {}
+print(json.dumps({"rc": rc, "kind": out.get("kind"), "trace": out.get("trace"),
+                  "program": out.get("program"),
+                  "program_setup": out.get("program_setup"),
+                  "before_stage_window": seen}))
+"""
+# read only on a card: the kernels are built, and the CUDA allocator counts,
+# only there
+CARD_ONLY = ("setup_kernels_s", "dev_allocs_per_img")
+STAGED = [w for w in WORKLOADS if w in ("fpn_learn_nms.rcnn_b4",
+                                        "flagship.serve_conc")]
+
+
+@pytest.mark.parametrize("workload", STAGED)
+def test_traced_run_reads_the_program_s_stages(workload):
+    """A traced run enables the program's registry for its set-up and its
+    stage window: its summary carries the stages of that window and the
+    registry's snapshots, while the first traced window has no ``rn:``
+    record; and every stage metric of the cell reads a number from them
+    once the trace has device time (a CPU trace has none, and the readers
+    then read nothing)."""
+    p = subprocess.run(
+        [sys.executable, "-c", _SUMMARY, "--workload", workload, "--seed",
+         "3000000019", "--seconds", "1", "--trace", "1", "--rehearse"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+        env=dict(__import__("os").environ, OMP_NUM_THREADS="2"))
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    assert got["rc"] == 0, p.stderr[-3000:]
+    kind = got["kind"]
+    outer = "step" if kind == "train" else "predict"
+    stages = got["trace"]["stages"]["stages"]
+    assert {outer, f"{outer}.input", f"{outer}.trunk_rpn"} <= set(stages)
+    assert got["trace"]["stages"]["images"] >= 1
+    # the registry recorded nothing between the set-up and the stage window
+    assert got["before_stage_window"] == [{}]
+    assert all(row["host_ms"] >= 0 for row in stages.values())
+    assert got["program"]["spans"][outer]["count"] >= 1
+    assert "setup.model" in got["program_setup"]["spans"]
+    assert outer in got["program_setup"]["spans"]
+    stage_metrics = [m["name"] for m in cells.resolve(workload)["per_layer"]
+                     if m["source"] in ("program_span", "program_counter")]
+    assert len(stage_metrics) == 12
+    out = dict(got)
+    assert all(cells.metric_reader(m)(out) is None for m in stage_metrics)
+    out["trace"]["stages"]["busy_ms"] = 1.0
+    for m in stage_metrics:
+        value = cells.metric_reader(m)(out)
+        if m.split(".")[0] in CARD_ONLY:
+            assert value is None, m
+        else:
+            assert isinstance(value, float) and value >= 0, (m, value)
+
+
 def test_training_step_agrees_with_the_reference():
     rc, result, err = rehearse("fpn_learn_nms.rcnn_b4")
     assert rc == 0 and result["correct"], err[-3000:]
@@ -87,11 +157,17 @@ def test_no_jax_module_is_loaded():
     assert "FORBIDDEN []" in p.stdout, p.stdout[-2000:] + p.stderr[-2000:]
 
 
-def test_reference_imports_nothing_of_the_program():
+REFERENCES = sorted(p.stem for p in (ROOT / "benchmark" / "reference").glob("*.py"))
+
+
+@pytest.mark.parametrize("module", REFERENCES)
+def test_reference_imports_nothing_of_the_program(module):
+    name = ("benchmark.reference" if module == "__init__"
+            else f"benchmark.reference.{module}")
     code = ("import sys; sys.path.insert(0, '.'); "
-            "import benchmark.reference.detector, benchmark.harness.flops; "
+            f"import {name}, benchmark.harness.flops, benchmark.harness.compare; "
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
-            "{'relation_tpu_torch', 'relation_tpu', 'jax'}))")
+            "{'relation_tpu_torch', 'relation_tpu', 'jax', 'jaxlib', 'flax'}))")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert p.stdout.strip() == "[]", p.stdout + p.stderr

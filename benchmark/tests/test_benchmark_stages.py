@@ -73,17 +73,15 @@ def test_host_time_is_each_thread_s_innermost_stage():
 
 def test_a_trace_without_program_spans_has_no_stages():
     events = [e for e in request_trace() if not e.name.startswith("rn:")]
-    st = stages.reduce(events)
+    st = dict(stages.reduce(events), images=2)
     assert st["stages"] == {} and st["busy_ms"] == 0.057
-    out = {"kind": "serve", "trace": {"stages": st, "images": 2,
-                                      "busy_s": 5.7e-5}}
+    out = {"kind": "serve", "trace": {"stages": st}}
     assert cells.metric_reader("idle_head_ms.serve")(out) is None
 
 
 def test_readers_take_the_stages_of_the_cell_kind():
-    st = stages.reduce(request_trace())
-    out = {"kind": "serve", "trace": {"stages": st, "images": 2,
-                                      "busy_s": 5.7e-5}}
+    st = dict(stages.reduce(request_trace()), images=2)
+    out = {"kind": "serve", "trace": {"stages": st}}
     read = {m: cells.metric_reader(m)(out) for m in (
         "idle_input_ms.serve", "idle_outside_ms.serve",
         "proposals_dev_ms.serve", "idle_head_ms.serve")}
@@ -103,7 +101,7 @@ def test_registry_readers():
                          "host_read.fpn_level_counts": 2},
             "allocator": {"num_device_alloc": 3}}
     out = {"kind": "serve", "program": snap, "program_setup": snap,
-           "trace": {"images": 2, "busy_s": 1.0}}
+           "trace": {"stages": {"images": 2, "busy_ms": 1.0, "stages": {}}}}
     read = {m: cells.metric_reader(m)(out) for m in (
         "host_reads_per_img.serve", "dev_allocs_per_img.serve",
         "setup_kernels_s.serve", "setup_model_s.serve", "first_call_s.serve")}
@@ -111,5 +109,5 @@ def test_registry_readers():
                     "dev_allocs_per_img.serve": 1.5,
                     "setup_kernels_s.serve": 1.5, "setup_model_s.serve": 0.25,
                     "first_call_s.serve": 4.0}
-    out["trace"]["busy_s"] = 0.0           # a CPU rehearsal's trace
+    out["trace"]["stages"]["busy_ms"] = 0.0   # a CPU rehearsal's trace
     assert all(cells.metric_reader(m)(out) is None for m in read)

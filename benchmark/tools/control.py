@@ -34,43 +34,45 @@ def _with_tf32(on: bool, fn, *a):
 
 
 def train_readings(config, mix, seed, device):
-    """The control's readings of a training cell."""
-    from benchmark.harness import train
-    from benchmark.reference import detector as ref
-    ctx = {"config": config, "mix": mix, "seed": seed, "device": device,
-           "rehearse": device.type == "cpu", "fault": ""}
-    model, _, _, W, batches = train.build(ctx)
+    """The control's readings of a training cell: the weights and the
+    batches as its driver's ``build`` makes them."""
+    from benchmark.harness import cells, compare
+    ref = cells.reference(config)
+    ctx = {"config": config, "reference": ref, "mix": mix, "seed": seed,
+           "device": device, "rehearse": device.type == "cpu", "fault": ""}
+    model, _, _, W, batches = cells.driver(mix["kind"]).build(ctx)
     del model
     n = int(mix["check_steps"])
     want = _with_tf32(False, ref.train_steps, W, config, batches, n)
     got = _with_tf32(True, ref.train_steps, W, config, batches, n)
-    skip, r_grad, _ = ref.nongrad_floor(want[1])
+    skip, r_grad, _ = compare.nongrad_floor(want[1])
     g_grad = {k: float(v.norm()) for k, v in got[1].items()}
     r_change = {k: float((v - W[k]).norm()) for k, v in want[2].items()}
     g_change = {k: float((v - W[k]).norm()) for k, v in got[2].items()}
-    return {"loss_gap": max(ref.math_rel(a, b) for a, b in zip(got[0], want[0])),
-            "grad_gap": ref.worst_leaf_gap(g_grad, r_grad, skip)[0],
-            "change_gap_med": ref.median_leaf_gap(g_change, r_change, skip),
-            "change_gap_worst": ref.worst_leaf_gap(g_change, r_change, skip)[0]}
+    return {"loss_gap": max(compare.math_rel(a, b)
+                            for a, b in zip(got[0], want[0])),
+            "grad_gap": compare.worst_leaf_gap(g_grad, r_grad, skip)[0],
+            "change_gap_med": compare.median_leaf_gap(g_change, r_change, skip),
+            "change_gap_worst": compare.worst_leaf_gap(g_change, r_change, skip)[0]}
 
 
 def serve_readings(config, mix, seed, device):
     import torch
-    from benchmark.harness import traffic
+    from benchmark.harness import cells, compare, traffic
     from benchmark.harness.weights import make_weights
-    from benchmark.reference import detector as ref
-    W = make_weights(config, seed, device)
+    ref = cells.reference(config)
+    W = make_weights(ref, config, seed, device)
     imgs, infos = traffic.images(config, int(mix["pool_images"]), seed, device)
     pick = random.Random(seed + 1).sample(range(len(imgs)),
                                           min(int(mix["check_requests"]), len(imgs)))
     top = int(config["limits"]["serve"]["top"])
-    from benchmark.harness.serve import summarise
+    summarise = cells.driver(mix["kind"]).summarise
     got = []
     with torch.no_grad():
         for j in pick:
             want = _with_tf32(False, ref.predict, W, config, imgs[j], infos[j]).cpu()
             low = _with_tf32(True, ref.predict, W, config, imgs[j], infos[j]).cpu()
-            got.append(ref.dets_gap(low, want, top))
+            got.append(compare.dets_gap(low, want, top))
     return {k: v for k, (v, _) in summarise(got, config["limits"]["serve"]).items()}
 
 
@@ -88,8 +90,9 @@ def main():
     if args.rehearse:
         config, mix = rehearsal(config, mix)
     device = torch.device("cpu" if args.rehearse else "cuda")
+    kind = cells.driver(mix["kind"], ROOT).KIND
     for seed in args.seeds:
-        if mix["kind"] == "train_rcnn":
+        if kind == "train":
             got = train_readings(config, mix, seed, device)
         else:
             got = serve_readings(config, mix, seed, device)

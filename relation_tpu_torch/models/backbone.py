@@ -20,6 +20,7 @@ from relation_tpu_torch.ops.deform import deformable_conv_batched
 from relation_tpu_torch.ops.kernels.bottleneck_proj import fused_proj_bottleneck
 from relation_tpu_torch.ops.kernels.res4 import fused_bottleneck_stack
 from relation_tpu_torch.ops.kernels.stem import stem_conv1_bn_relu
+from relation_tpu_torch.utils import trace
 
 
 class FrozenBatchNorm(nn.Module):
@@ -399,12 +400,13 @@ class DCNBottleneck(nn.Module):
         conv_a = g(f"res{p}_branch2a")
         y = F.relu(g(f"bn{p}_branch2a")(conv_a(x)))
         dt = conv_a.compute_dtype or y.dtype
-        offset = g(f"res{p}_branch2b_offset")(y.float())           # NCHW f32
-        w = g(f"res{p}_branch2b_weight")
-        d = deformable_conv_batched(
-            y.to(dt).permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
-            w.to(dt).permute(2, 3, 1, 0), kernel=3, dilation=self.dilation,
-            num_groups=self.deform_groups)
+        with trace.span("dcn.conv"):
+            offset = g(f"res{p}_branch2b_offset")(y.float())       # NCHW f32
+            w = g(f"res{p}_branch2b_weight")
+            d = deformable_conv_batched(
+                y.to(dt).permute(0, 2, 3, 1), offset.permute(0, 2, 3, 1),
+                w.to(dt).permute(2, 3, 1, 0), kernel=3, dilation=self.dilation,
+                num_groups=self.deform_groups)
         y = F.relu(g(f"bn{p}_branch2b")(d.to(dt).permute(0, 3, 1, 2)))
         y = g(f"bn{p}_branch2c")(g(f"res{p}_branch2c")(y))
         return F.relu(sc + y)

@@ -22,6 +22,7 @@ from relation_tpu_torch.ops.deform import deformable_psroi_pool
 from relation_tpu_torch.ops.embeddings import extract_position_matrix_t
 from relation_tpu_torch.ops.kernels.roi_align import roi_align_levels
 from relation_tpu_torch.ops.roi_pool import roi_pool
+from relation_tpu_torch.utils import trace
 
 
 class RelationRCNN(nn.Module):
@@ -113,13 +114,15 @@ class RelationRCNN(nn.Module):
         step's stop_after='pool' cut)."""
         scale = 1.0 / self.rcnn_feat_stride
         if self.dcn:
-            pf = reduced_feat.to(self.dcn_pool_dtype)
-            offset_t = deformable_psroi_pool(pf, rois, None, scale,
-                                             pooled_size=7, sample_per_part=4)
-            off = self.offset(offset_t.reshape(rois.shape[0], -1).float())
-            pooled = deformable_psroi_pool(pf, rois, off.reshape(-1, 2, 7, 7),
-                                           scale, pooled_size=7,
-                                           sample_per_part=4, trans_std=0.1)
+            with trace.span("dcn.pool"):
+                pf = reduced_feat.to(self.dcn_pool_dtype)
+                offset_t = deformable_psroi_pool(pf, rois, None, scale,
+                                                 pooled_size=7,
+                                                 sample_per_part=4)
+                off = self.offset(offset_t.reshape(rois.shape[0], -1).float())
+                pooled = deformable_psroi_pool(
+                    pf, rois, off.reshape(-1, 2, 7, 7), scale, pooled_size=7,
+                    sample_per_part=4, trans_std=0.1)
         elif self.roi_method == "pool":
             pooled = roi_pool(reduced_feat, rois, scale, 7)
         else:

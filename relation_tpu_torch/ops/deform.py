@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from relation_tpu_torch.ops.kernels.dconv_col2im import dconv_col2im
+from relation_tpu_torch.utils import trace
 
 
 def _tap_coords(offset: torch.Tensor, k: int, stride: int, dilation: int,
@@ -111,6 +112,7 @@ class _DeformConv(torch.autograd.Function):
         return out.view(B, Ho, Wo, -1)
 
     @staticmethod
+    @trace.span("dcn.conv_bwd")
     def backward(ctx, dout):
         x, offset, weights, col = ctx.saved_tensors
         k, stride, dilation, pad, G = ctx.conf
@@ -130,10 +132,11 @@ class _DeformConv(torch.autograd.Function):
         inside, yz, xz = _inside(yy, xx, H, W)
         if need_x:
             # the col2im kernel; samples (q, tap) of one (b, g) in dcol's order
-            dx = dconv_col2im(
-                yz.reshape(B, Q * kk, G), xz.reshape(B, Q * kk, G),
-                inside.reshape(B, Q * kk, G), dcol.view(B, Q * kk, G, cg),
-                H, W).to(x.dtype)
+            with trace.span("dcn.col2im"):
+                dx = dconv_col2im(
+                    yz.reshape(B, Q * kk, G), xz.reshape(B, Q * kk, G),
+                    inside.reshape(B, Q * kk, G), dcol.view(B, Q * kk, G, cg),
+                    H, W).to(x.dtype)
         if need_off:
             y0, x0 = torch.floor(yz), torch.floor(xz)
             ly = (yz - y0).to(x.dtype)[..., None]
@@ -171,6 +174,9 @@ def deformable_conv_batched(x: torch.Tensor, offset: torch.Tensor,
     if offset.shape[-1] != num_groups * 2 * k * k:
         raise ValueError(f"deformable_conv_batched: {offset.shape[-1]} offset "
                          f"channels for {num_groups} groups of {k}x{k} taps")
+    trace.count("dcn.conv.samples",
+                offset.shape[0] * offset.shape[1] * offset.shape[2] * k * k
+                * num_groups)
     return _DeformConv.apply(x.contiguous(), offset.contiguous(),
                              weights.contiguous(), k, stride, dilation, pad,
                              num_groups)
@@ -217,6 +223,7 @@ def deformable_psroi_pool(feat: torch.Tensor, rois: torch.Tensor,
     R = rois.shape[0]
     dev = feat.device
     rois = rois.to(torch.float32)
+    trace.count("dcn.pool.samples", R * P * P * S * S)
 
     start_w = torch.round(rois[:, 0]) * spatial_scale - 0.5
     start_h = torch.round(rois[:, 1]) * spatial_scale - 0.5

@@ -32,10 +32,18 @@ The span names are the stages the benchmark's stage reduction reads
 proposals,head,tail}`` (core/predictor.py), ``step`` and ``step.{input,
 trunk_rpn,rois,backward,allreduce,update}`` (core/trainer.py::run_step),
 ``setup.kernels`` (ops/kernels/_build.py) and ``setup.model``
-(core/trainer.py::build_model). The counters are the program's deliberate
-host reads of device data (``host_read.<site>``), the learned-NMS
-attention's branch (``lnms.branch.<skip|dense|fused>``) and the kernel
-libraries built and loaded (``kernels.built``, ``kernels.loaded``).
+(core/trainer.py::build_model); a DCN model also opens ``dcn.conv`` (a
+deformable res5 unit's offset conv and deformable conv, models/backbone.py),
+``dcn.pool`` (the head's two deformable PSROI pools and its ``offset`` FC,
+models/detector.py), and in the deformable conv's backward, on autograd's
+thread, ``dcn.conv_bwd`` around ``dcn.col2im`` (ops/deform.py). The
+counters are the program's deliberate host reads of device data
+(``host_read.<site>``), the learned-NMS attention's branch
+(``lnms.branch.<skip|dense|fused>``), the kernel libraries built and
+loaded (``kernels.built``, ``kernels.loaded``) and the deformable ops'
+bilinear samples, counted from shapes (``dcn.conv.samples``: B * Ho * Wo *
+taps * groups a conv; ``dcn.pool.samples``: ROIs * bins * samples a bin a
+pool).
 """
 
 from __future__ import annotations

@@ -34,28 +34,43 @@ from relation_tpu_torch.utils.debug import tensor_stats
 _NEG_INF = -1e10
 
 
-def _image_from_u8(image: torch.Tensor, im_info: torch.Tensor, pixel_means):
-    """Device-side mean subtraction and pad re-zeroing for uint8 inputs, s2d
-    planar [12, H/2, W/2] or NHWC [H, W, 3]; other dtypes pass through."""
+def pixel_means_tensor(cfg, device) -> torch.Tensor:
+    """cfg.network.PIXEL_MEANS (BGR) as an f32 tensor [3] on ``device``, for
+    ``_image_from_u8``. Made once where a step or a predict function is
+    built: a tensor made from host values inside a step or a request is a
+    copy from pageable memory, which blocks the host until the card has run
+    everything queued before it."""
+    return torch.tensor([float(m) for m in cfg.network.PIXEL_MEANS],
+                        dtype=torch.float32, device=device)
+
+
+def _image_from_u8(image: torch.Tensor, im_info: torch.Tensor,
+                   means: torch.Tensor):
+    """Device-side mean subtraction and pad re-zeroing for a batch of uint8
+    images, s2d planar [B, 12, H/2, W/2] or NHWC [B, H, W, 3], with
+    ``im_info`` [B, 3]; ``means`` is ``pixel_means_tensor``'s, on the
+    images' device (one image: ``image[None]``, ``im_info[None]``). Other
+    dtypes pass through. Nothing is made from host values, so nothing here
+    waits on the device."""
     if image.dtype != torch.uint8:
         return image
     dev = image.device
-    means = torch.as_tensor(pixel_means, dtype=torch.float32, device=dev).reshape(-1)
-    h, w = im_info[0], im_info[1]
-    if image.dim() == 3 and image.shape[0] == 12 and image.shape[-1] != 3:
+    h, w = im_info[:, 0], im_info[:, 1]
+    if image.shape[1] == 12 and image.shape[-1] != 3:
         k = torch.arange(12, device=dev)
         x = image.float() - means[k % 3][:, None, None]
-        hh, ww = image.shape[1], image.shape[2]
-        row_ok = (2.0 * torch.arange(hh, device=dev)[None, :] + (k // 6)[:, None]) < h
+        hh, ww = image.shape[2], image.shape[3]
+        row_ok = (2.0 * torch.arange(hh, device=dev)[None, :]
+                  + (k // 6)[:, None])[None] < h[:, None, None]
         col_ok = (2.0 * torch.arange(ww, device=dev)[None, :]
-                  + ((k // 3) % 2)[:, None]) < w
-        return x * (row_ok[:, :, None] & col_ok[:, None, :])
-    x = image.float() - means[None, None, :]
-    row_ok = torch.arange(image.shape[0], dtype=torch.float32,
-                          device=dev)[:, None, None] < h
-    col_ok = torch.arange(image.shape[1], dtype=torch.float32,
-                          device=dev)[None, :, None] < w
-    return x * (row_ok & col_ok)
+                  + ((k // 3) % 2)[:, None])[None] < w[:, None, None]
+        return x * (row_ok[:, :, :, None] & col_ok[:, :, None, :])
+    x = image.float() - means
+    row_ok = torch.arange(image.shape[1], dtype=torch.float32,
+                          device=dev)[None, :] < h[:, None]
+    col_ok = torch.arange(image.shape[2], dtype=torch.float32,
+                          device=dev)[None, :] < w[:, None]
+    return x * (row_ok[:, :, None, None] & col_ok[:, None, :, None])
 
 
 def _topk_detections(cls_ids, scores, boxes, valid, max_det: int):
@@ -146,7 +161,7 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
     merge_method = int(cfg.TEST.MERGE_METHOD)
     score_thresh = float(cfg.TEST.get("SCORE_THRESH", 1e-3))
     class_thresh = float(cfg.TEST.LEARN_NMS_CLASS_SCORE_TH)
-    pixel_means = tuple(float(m) for m in cfg.network.PIXEL_MEANS)
+    pixel_means = pixel_means_tensor(cfg, device)
     pre_n, post_n = int(cfg.TEST.RPN_PRE_NMS_TOP_N), int(cfg.TEST.RPN_POST_NMS_TOP_N)
     rpn_thresh = float(cfg.TEST.RPN_NMS_THRESH)
     min_size = float(cfg.TEST.RPN_MIN_SIZE)
@@ -227,7 +242,8 @@ def make_predict_fn(model: RelationRCNN | RelationRCNNFPN, cfg,
         with trace.span("predict.input"):
             image = torch.as_tensor(image, device=device)
             im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
-            image = _image_from_u8(image, im_info, pixel_means)
+            image = _image_from_u8(image[None], im_info[None],
+                                   pixel_means)[0]
         if is_fpn:
             with trace.span("predict.trunk_rpn"):
                 feat, rpn_out = model.features_and_rpn(image)
@@ -340,7 +356,7 @@ def make_predict_fn_rcnn(model: RelationRCNN | RelationRCNNFPN, cfg):
         tail masks them."""
     device = next(model.parameters()).device
     learn_nms = bool(cfg.TEST.LEARN_NMS)
-    pixel_means = tuple(float(m) for m in cfg.network.PIXEL_MEANS)
+    pixel_means = pixel_means_tensor(cfg, device)
     base = make_predict_fn(model, cfg)
 
     @torch.inference_mode()
@@ -351,7 +367,8 @@ def make_predict_fn_rcnn(model: RelationRCNN | RelationRCNNFPN, cfg):
             im_info = torch.as_tensor(im_info, dtype=torch.float32, device=device)
             rois = torch.as_tensor(rois, dtype=torch.float32, device=device)
             rois_valid = torch.as_tensor(rois_valid, device=device).bool()
-            image = _image_from_u8(image, im_info, pixel_means)
+            image = _image_from_u8(image[None], im_info[None],
+                                   pixel_means)[0]
         with trace.span("predict.trunk_rpn"):
             feat = model.features_and_rpn(image)[0]
         with trace.span("predict.head"):

@@ -44,7 +44,8 @@ def generate_rpn_proposals(model, cfg, roidb, out_path: str, loader=None,
     [N, 5] to the pickle ``out_path``, in the loader's order. C4: softmax,
     then models/rpn.py::generate_proposals; FPN: generate_proposals_fpn (the
     exact top-k, whatever TPU.FPN_TOPK says). Returns ``out_path``."""
-    from relation_tpu_torch.core.predictor import _image_from_u8
+    from relation_tpu_torch.core.predictor import (_image_from_u8,
+                                                   pixel_means_tensor)
     from relation_tpu_torch.core.trainer import resolve_device
     from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
                                                generate_proposals_fpn)
@@ -72,15 +73,15 @@ def generate_rpn_proposals(model, cfg, roidb, out_path: str, loader=None,
     top = (int(cfg.TEST.PROPOSAL_PRE_NMS_TOP_N),
            int(cfg.TEST.PROPOSAL_POST_NMS_TOP_N),
            float(cfg.TEST.PROPOSAL_NMS_THRESH), float(cfg.TEST.PROPOSAL_MIN_SIZE))
-    pixel_means = tuple(float(m) for m in cfg.network.PIXEL_MEANS)
+    pixel_means = pixel_means_tensor(cfg, dev)
 
     boxes_per_image = []
     with torch.inference_mode():
         for _, image, im_info in loader:
             info = torch.as_tensor(np.asarray(im_info), dtype=torch.float32,
                                    device=dev)
-            image = _image_from_u8(torch.as_tensor(image, device=dev), info,
-                                   pixel_means)
+            image = _image_from_u8(torch.as_tensor(image, device=dev)[None],
+                                   info[None], pixel_means)[0]
             if is_fpn:
                 _, rpn_out = model.features_and_rpn(image)
                 rois, scores, real = generate_proposals_fpn(rpn_out, base, info,
@@ -285,8 +286,8 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
     rois [B, R, 4] in the image's coordinates, rois_valid [B, R]); R <=
     ``max_rois``. ``priorities``: one dict an image, {"sample": (fg, bg,
     pad, gap) each [R + G]} when TRAIN.BATCH_ROIS >= 0 (the JAX step draws
-    them from the image's key), else {} or None; None draws from
-    ``state.generator``.
+    them from the image's key), else {}; None draws them from
+    ``state.generator``, image after image, before the first image.
 
     ``train_shared`` takes network.FIXED_PARAMS_SHARED as the frozen set
     (reference function/train_rcnn.py:119-123), ``fixed_prefixes`` any
@@ -304,10 +305,12 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
     and the step trains on that loss, with total_loss its only metric but
     after 'head'; "" is the full step. The sampler draws as in the full
     step up to the cut."""
+    from relation_tpu_torch.core.predictor import pixel_means_tensor
     from relation_tpu_torch.core.trainer import (head_losses_fn, run_step,
-                                                 step_device, target_constants,
+                                                 sample_fn, step_device,
+                                                 target_constants,
                                                  trainable_mask)
-    from relation_tpu_torch.models.targets import sample_rois
+    from relation_tpu_torch.models.targets import uniform_priorities
 
     if stop_after and stop_after not in STOP_AFTER_RCNN:
         raise ValueError(f"stop_after={stop_after!r}: one of {STOP_AFTER_RCNN}")
@@ -318,32 +321,32 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                          "as in the reference configs")
     num_reg = 2 if cfg.CLASS_AGNOSTIC else int(cfg.dataset.NUM_CLASSES)
     nongt_dim = min(int(cfg.TRAIN.RPN_POST_NMS_TOP_N), int(max_rois))
-    targets = target_constants(
+    sample = sample_fn(cfg, batch_rois, num_reg, target_constants(
         cfg.TRAIN.BBOX_MEANS if bbox_means is None else bbox_means,
         cfg.TRAIN.BBOX_STDS if bbox_stds is None else bbox_stds,
-        cfg.TRAIN.BBOX_WEIGHTS, device)
+        cfg.TRAIN.BBOX_WEIGHTS, device), True)
     if fixed_prefixes is None:
         fixed_prefixes = (cfg.network.FIXED_PARAMS_SHARED if train_shared
                           else cfg.network.FIXED_PARAMS)
     step_mask = trainable_mask(model, tuple(fixed_prefixes))
     head_losses = head_losses_fn(model, cfg, stop_after=stop_after)
+    pixel_means = pixel_means_tensor(cfg, device)
+    sampled = batch_rois >= 0 and stop_after != "trunk"
 
-    def per_image(feat, _rpn, ins, generator, prio):
+    def draw(_rpn, ins, n_images, generator):
+        """The sampler's four vectors [R + G] an image in sampled mode."""
+        n = ins["rois"].shape[0] + ins["gt_boxes"].shape[0]
+        return [{"sample": uniform_priorities(generator, 4, n, device)}
+                if sampled else {} for _ in range(n_images)]
+
+    def per_image(feat, _rpn, ins, prio):
         if stop_after == "trunk":
             # the image's feature maps (every level of an FPN), no head
             levels = feat.values() if isinstance(feat, dict) else (feat,)
             total = 1e-30 * sum(torch.sum(f.float()) for f in levels)
             return total, {"total_loss": total}
-        with torch.no_grad():
-            tgt = sample_rois(
-                ins["rois"], ins["rois_valid"], ins["gt_boxes"], ins["gt_valid"],
-                generator, batch_rois=batch_rois, num_reg_classes=num_reg,
-                fg_fraction=float(cfg.TRAIN.FG_FRACTION),
-                fg_thresh=float(cfg.TRAIN.FG_THRESH),
-                bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
-                bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
-                bbox_normalize=True, **targets,
-                priorities=None if prio is None else prio.get("sample"))
+        tgt = sample(ins["rois"], ins["rois_valid"], ins["gt_boxes"],
+                     ins["gt_valid"], prio.get("sample"))
         if stop_after == "sample":
             total = 1e-30 * (torch.sum(tgt["rois"]) + torch.sum(tgt["bbox_target"])
                              + torch.sum(tgt["label"].float()))
@@ -366,7 +369,7 @@ def make_train_step_rcnn(model, cfg, max_rois: int, max_gt: int,
                              f"max_rois {max_rois}")
         return run_step(model, state, batch, priorities, per_image,
                         step_mask=step_mask, no_grad=no_grad, device=device,
-                        pixel_means=cfg.network.PIXEL_MEANS,
+                        pixel_means=pixel_means, draw=draw,
                         reaches_params=stop_after != "sample")
 
     return train_step
@@ -379,26 +382,36 @@ def make_train_step_rpn(model, cfg, max_gt: int, device="cuda") -> Callable:
     FPN_STRIDES order, as in the end-to-end step. The frozen set is
     network.FIXED_PARAMS. Batch as in make_train_step; ``priorities``: one
     dict an image, {"anchor": (fg [K], bg [K])} (the JAX step draws them
-    from the image's key), or None to draw from ``state.generator``.
+    from the image's key), or None to draw them from ``state.generator``,
+    image after image, before the first image.
     ``max_gt`` is accepted for the JAX signature.
 
     Differs from the JAX step under TPU.GRAD_CLIP: the JAX RPN step
     differentiates the frozen leaves too, so their gradients enter its
     global norm; here, as in every step of the port, only trainable leaves
     take a gradient."""
+    from relation_tpu_torch.core.predictor import pixel_means_tensor
     from relation_tpu_torch.core.trainer import (rpn_loss_fn, rpn_rows_fn,
                                                  run_step, step_device,
                                                  trainable_mask)
+    from relation_tpu_torch.models.targets import uniform_priorities
     device = step_device(model, cfg, device, "make_train_step_rpn")
     step_mask = trainable_mask(model, tuple(cfg.network.FIXED_PARAMS))
+    pixel_means = pixel_means_tensor(cfg, device)
     rpn_rows = rpn_rows_fn(model, cfg, device)
     rpn_loss = rpn_loss_fn(cfg, device)
 
-    def per_image(_feat, rpn, ins, generator, prio):
+    def draw(rpn, _ins, n_images, generator):
+        """The anchors' (fg, bg) an image."""
+        n = rpn_rows(rpn)[0].shape[0]
+        return [{"anchor": uniform_priorities(generator, 2, n, device)}
+                for _ in range(n_images)]
+
+    def per_image(_feat, rpn, ins, prio):
         anchors, rpn_cls, rpn_bbox = rpn_rows(rpn)
         cls_loss, bbox_loss, acc = rpn_loss(
             anchors, rpn_cls, rpn_bbox, ins["im_info"], ins["gt_boxes"],
-            ins["gt_valid"], generator, None if prio is None else prio["anchor"])
+            ins["gt_valid"], prio["anchor"])
         total = cls_loss + bbox_loss
         return total, {"rpn_cls_loss": cls_loss, "rpn_bbox_loss": bbox_loss,
                        "rpn_acc": acc, "total_loss": total}
@@ -406,6 +419,6 @@ def make_train_step_rpn(model, cfg, max_gt: int, device="cuda") -> Callable:
     def train_step(state, batch, priorities=None):
         return run_step(model, state, batch, priorities, per_image,
                         step_mask=step_mask, no_grad=False, device=device,
-                        pixel_means=cfg.network.PIXEL_MEANS)
+                        pixel_means=pixel_means, draw=draw)
 
     return train_step

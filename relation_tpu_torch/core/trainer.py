@@ -38,10 +38,11 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from relation_tpu_torch.core.predictor import _image_from_u8, pixel_means_tensor
 from relation_tpu_torch.models.backbone import Conv2d
 from relation_tpu_torch.models.detector import RelationRCNN
 from relation_tpu_torch.models.fpn import (FPN_STRIDES, RelationRCNNFPN,
-                                           fpn_anchors, generate_proposals_fpn)
+                                           generate_proposals_fpn)
 from relation_tpu_torch.models.losses import (accuracy_ignore, learn_nms_losses,
                                               nms_accuracy, rcnn_losses,
                                               rpn_losses)
@@ -51,6 +52,7 @@ from relation_tpu_torch.models.targets import (anchor_targets, nms_multi_target,
                                                uniform_priorities)
 from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
 from relation_tpu_torch.utils import trace
+from relation_tpu_torch.utils.graphs import replayed
 from relation_tpu_torch.utils.lr import warmup_multi_factor_schedule
 
 _ALWAYS_FROZEN = ("gamma", "beta", "moving_mean", "moving_var")
@@ -213,12 +215,13 @@ class Optimizer:
         torch._foreach_mul_(traces, self.momentum)
         torch._foreach_add_(traces, grads)
         lr = self.schedule(step)
-        slow = [i for i, n in enumerate(names) if "offset" in n.split(".")]
-        if slow:
-            for i, (p, t) in enumerate(zip(params, traces)):
-                p.add_(t, alpha=-lr * (0.01 if i in slow else 1.0))
-        else:
-            torch._foreach_add_(params, traces, alpha=-lr)
+        slow = ["offset" in n.split(".") for n in names]
+        for is_slow, rate in ((False, 1.0), (True, 0.01)):
+            group = [i for i, s in enumerate(slow) if s is is_slow]
+            if group:
+                torch._foreach_add_([params[i] for i in group],
+                                    [traces[i] for i in group],
+                                    alpha=-lr * rate)
 
 
 def make_optimizer(cfg, epoch_size: int, mask: dict) -> Optimizer:
@@ -363,21 +366,30 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     rpn_loss = rpn_loss_fn(cfg, device)
     head_losses = head_losses_fn(model, cfg, stop_after=stop_after)
     cut = STOP_AFTER.index(stop_after) if stop_after else len(STOP_AFTER)
-    targets = target_constants(cfg.TRAIN.BBOX_MEANS, cfg.TRAIN.BBOX_STDS,
-                               cfg.TRAIN.BBOX_WEIGHTS, device)
+    sample = sample_fn(cfg, batch_rois, num_reg, target_constants(
+        cfg.TRAIN.BBOX_MEANS, cfg.TRAIN.BBOX_STDS, cfg.TRAIN.BBOX_WEIGHTS,
+        device), bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED))
+    pixel_means = pixel_means_tensor(cfg, device)
 
-    def proposals(rpn, im_info):
-        """The image's proposals [post_N, 4] (called without gradient)."""
-        top = (int(cfg.TRAIN.RPN_PRE_NMS_TOP_N), int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
-               float(cfg.TRAIN.RPN_NMS_THRESH), float(cfg.TRAIN.RPN_MIN_SIZE))
+    top = (int(cfg.TRAIN.RPN_PRE_NMS_TOP_N), int(cfg.TRAIN.RPN_POST_NMS_TOP_N),
+           float(cfg.TRAIN.RPN_NMS_THRESH), float(cfg.TRAIN.RPN_MIN_SIZE))
+
+    @replayed
+    def proposals_of(im_info, *rpn_flat):
         if is_fpn:
+            rpn = {s: rpn_flat[2 * i:2 * i + 2] for i, s in enumerate(FPN_STRIDES)}
             return generate_proposals_fpn(rpn, level_base, im_info, *top)[0]
-        rpn_cls, rpn_bbox = rpn
+        rpn_cls, rpn_bbox = rpn_flat
         return generate_proposals(torch.softmax(rpn_cls, dim=-1)[..., 1],
                                   rpn_bbox, base_anchors_t, im_info, stride,
                                   *top)[0]
 
-    def draw(rpn, n_images: int, n_gt: int, generator) -> list:
+    def proposals(rpn, im_info):
+        """The image's proposals [post_N, 4], without gradient."""
+        flat = [t for s in FPN_STRIDES for t in rpn[s]] if is_fpn else rpn
+        return proposals_of(im_info, *flat)
+
+    def draw(rpn, ins, n_images: int, generator) -> list:
         """The priorities of ``n_images`` images in the order a step draws
         them image after image: the anchors' (fg, bg) unless the step stops
         at the RPN, then the sampler's four vectors in sampled mode."""
@@ -389,12 +401,12 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
                 prio["anchor"] = uniform_priorities(generator, 2, n_anchors,
                                                     device)
             if cut > STOP_AFTER.index("proposals") and batch_rois >= 0:
-                prio["sample"] = uniform_priorities(generator, 4,
-                                                    nongt_dim + n_gt, device)
+                prio["sample"] = uniform_priorities(
+                    generator, 4, nongt_dim + ins["gt_boxes"].shape[0], device)
             out.append(prio)
         return out
 
-    def per_image(feat, rpn, ins, generator, prio):
+    def per_image(feat, rpn, ins, prio):
         """Everything after the batched conv trunk, for one image. C4: feat
         [h, w, 256], rpn (rpn_cls [h, w, A, 2], rpn_bbox [h, w, A, 4]); FPN:
         feat {stride: [h, w, 256]}, rpn {stride: (rpn_cls [h, w, 2A],
@@ -408,29 +420,19 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
             return tot, {"total_loss": tot}
         rpn_cls_loss, rpn_bbox_loss, rpn_acc = rpn_loss(
             anchors, rpn_cls_flat, rpn_bbox_flat, im_info, gt_boxes, gt_valid,
-            generator, None if prio is None else prio["anchor"])
+            prio["anchor"])
         total = rpn_cls_loss + rpn_bbox_loss
         if stop_after == "anchor_targets":
             return total, {"total_loss": total}
-        with torch.no_grad():
-            rois = proposals(rpn, im_info)
+        rois = proposals(rpn, im_info)
         if stop_after == "proposals":
             # the proposals carry no gradient; the 1e-30 term keeps them in
             # the loss, as in the JAX cut
             total = total + 1e-30 * torch.sum(rois)
             return total, {"total_loss": total}
-        with torch.no_grad():
-            tgt = sample_rois(
-                rois, torch.ones(rois.shape[0], dtype=torch.bool, device=device),
-                gt_boxes, gt_valid, generator,
-                batch_rois=batch_rois, num_reg_classes=num_reg,
-                fg_fraction=float(cfg.TRAIN.FG_FRACTION),
-                fg_thresh=float(cfg.TRAIN.FG_THRESH),
-                bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
-                bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
-                bbox_normalize=bool(cfg.TRAIN.BBOX_NORMALIZATION_PRECOMPUTED),
-                **targets,
-                priorities=None if prio is None else prio.get("sample"))
+        tgt = sample(rois, torch.ones(rois.shape[0], dtype=torch.bool,
+                                      device=device),
+                     gt_boxes, gt_valid, prio.get("sample"))
         if stop_after == "sample":
             total = total + 1e-30 * (torch.sum(tgt["rois"])
                                      + torch.sum(tgt["bbox_target"])
@@ -457,7 +459,7 @@ def make_train_step(model: RelationRCNN | RelationRCNNFPN, cfg,
     def train_step(state: TrainState, batch, priorities=None):
         return run_step(model, state, batch, priorities, per_image,
                         step_mask=step_mask, no_grad=no_grad, device=device,
-                        pixel_means=cfg.network.PIXEL_MEANS, mesh=mesh,
+                        pixel_means=pixel_means, mesh=mesh,
                         draw=draw)
 
     return train_step
@@ -495,15 +497,24 @@ def rpn_rows_fn(model, cfg, device) -> Callable:
     stride = int(cfg.network.RPN_FEAT_STRIDE)
     scales = tuple(cfg.network.ANCHOR_SCALES)
     ratios = tuple(cfg.network.ANCHOR_RATIOS)
-    base_anchors = generate_anchors(stride, ratios, scales)
+
+    def base(s):
+        # made on the device here, so that a new feature shape's grid is
+        # made there from device values, without a copy from the host
+        return torch.as_tensor(generate_anchors(s, ratios, scales),
+                               dtype=torch.float32, device=device)
+    base_anchors = base(stride)
+    level_base = {s: base(s) for s in FPN_STRIDES} if is_fpn else None
     grids = {}
 
     def rows(rpn):
         if is_fpn:
             shapes = tuple((s, tuple(rpn[s][0].shape[:2])) for s in FPN_STRIDES)
             if shapes not in grids:
-                level = fpn_anchors(dict(shapes), scales, ratios, device=device)
-                grids[shapes] = torch.cat([level[s] for s in FPN_STRIDES])
+                # models/fpn.py::fpn_anchors from the device's base anchors
+                grids[shapes] = torch.cat([
+                    shift_anchors(level_base[s], fh, fw, s)
+                    for s, (fh, fw) in shapes])
             # raw [h, w, 2A] / [h, w, 4A]: reshape(-1, 2 or 4) gives the
             # (h, w, a)-major rows of the C4 head's [h, w, A, 2 or 4]
             return (grids[shapes],
@@ -529,24 +540,50 @@ def target_constants(means, stds, weights, device) -> dict:
                          ("bbox_weights", weights))}
 
 
+def sample_fn(cfg, batch_rois: int, num_reg: int, targets: dict,
+              bbox_normalize: bool) -> Callable:
+    """sample(rois, roi_valid, gt_boxes, gt_valid, priorities) ->
+    ``sample_rois``' dict for one image, without gradient, as a CUDA graph
+    (utils/graphs.py): ``priorities`` the sampler's four vectors [R + G]
+    in sampled mode (TRAIN.BATCH_ROIS >= 0), else None."""
+    kw = dict(batch_rois=batch_rois, num_reg_classes=num_reg,
+              fg_fraction=float(cfg.TRAIN.FG_FRACTION),
+              fg_thresh=float(cfg.TRAIN.FG_THRESH),
+              bg_thresh_hi=float(cfg.TRAIN.BG_THRESH_HI),
+              bg_thresh_lo=float(cfg.TRAIN.BG_THRESH_LO),
+              bbox_normalize=bbox_normalize, **targets)
+    graphed = replayed(lambda rois, roi_valid, gt_boxes, gt_valid, *prio:
+                       sample_rois(rois, roi_valid, gt_boxes, gt_valid,
+                                   priorities=prio or None, **kw))
+
+    def sample(rois, roi_valid, gt_boxes, gt_valid, priorities):
+        if batch_rois >= 0 and priorities is None:
+            raise ValueError("sampled mode (TRAIN.BATCH_ROIS >= 0): the "
+                             "sampler's priorities are missing")
+        return graphed(rois, roi_valid, gt_boxes, gt_valid, *(priorities or ()))
+    return sample
+
+
 def rpn_loss_fn(cfg, device) -> Callable:
     """loss(anchors, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
-    generator, priorities) -> (cls loss, bbox loss, accuracy): anchor
-    targets (``priorities`` the (fg, bg) uniform vectors, or None to draw
-    from ``generator``) and the RPN losses of one image on ``device``."""
-    bbox_weights = torch.tensor(tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
-                                dtype=torch.float32, device=device)
+    priorities) -> (cls loss, bbox loss, accuracy): anchor targets
+    (``priorities`` the (fg, bg) uniform vectors; a CUDA graph,
+    utils/graphs.py) and the RPN losses of one image on ``device``."""
+    kw = dict(rpn_batch_size=int(cfg.TRAIN.RPN_BATCH_SIZE),
+              fg_fraction=float(cfg.TRAIN.RPN_FG_FRACTION),
+              positive_overlap=float(cfg.TRAIN.RPN_POSITIVE_OVERLAP),
+              negative_overlap=float(cfg.TRAIN.RPN_NEGATIVE_OVERLAP),
+              clobber_positives=bool(cfg.TRAIN.RPN_CLOBBER_POSITIVES),
+              bbox_weights=torch.tensor(tuple(cfg.TRAIN.RPN_BBOX_WEIGHTS),
+                                        dtype=torch.float32, device=device))
+    assign = replayed(lambda anchors, gt_boxes, gt_valid, im_info, *prio:
+                      anchor_targets(anchors, gt_boxes, gt_valid, im_info,
+                                     priorities=prio, **kw))
 
     def loss(anchors, rpn_cls, rpn_bbox, im_info, gt_boxes, gt_valid,
-             generator, priorities):
-        label, btgt, bwt = anchor_targets(
-            anchors, gt_boxes, gt_valid, im_info, generator,
-            rpn_batch_size=int(cfg.TRAIN.RPN_BATCH_SIZE),
-            fg_fraction=float(cfg.TRAIN.RPN_FG_FRACTION),
-            positive_overlap=float(cfg.TRAIN.RPN_POSITIVE_OVERLAP),
-            negative_overlap=float(cfg.TRAIN.RPN_NEGATIVE_OVERLAP),
-            clobber_positives=bool(cfg.TRAIN.RPN_CLOBBER_POSITIVES),
-            bbox_weights=bbox_weights, priorities=priorities)
+             priorities):
+        label, btgt, bwt = assign(anchors, gt_boxes, gt_valid, im_info,
+                                  *priorities)
         cls_loss, bbox_loss = rpn_losses(
             rpn_cls, rpn_bbox, label, btgt, bwt, int(cfg.TRAIN.RPN_BATCH_SIZE),
             sigma=float(cfg.TRAIN.rpn_loss_scale))
@@ -576,6 +613,13 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     batch_rois = int(cfg.TRAIN.BATCH_ROIS)
     bbox_norm_denom = float(cfg.TRAIN.BATCH_ROIS_OHEM if ohem
                             else (300 if batch_rois < 0 else batch_rois))
+    # no gradient in either: CUDA graphs (utils/graphs.py)
+    ohem_of = replayed(lambda cls_score, bbox_pred, label, target, weight:
+                       ohem_select(cls_score, bbox_pred, label, target, weight,
+                                   int(cfg.TRAIN.BATCH_ROIS_OHEM)))
+    nms_target = replayed(lambda sorted_bbox, gt_boxes, gt_valid, sorted_score:
+                          nms_multi_target(sorted_bbox, gt_boxes, gt_valid,
+                                           sorted_score, threshes))
 
     def lnms_branch(cls_score, bbox_pred, rois, fc2, im_info, gt_boxes,
                     gt_valid):
@@ -586,8 +630,8 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
             t = 1e-30 * (torch.sum(ln["nms_multi_score"])
                          + torch.sum(ln["sorted_bbox"]))
             return t, t, t, t, t
-        nt = nms_multi_target(ln["sorted_bbox"], gt_boxes, gt_valid,
-                              ln["sorted_score"].detach(), threshes)
+        nt = nms_target(ln["sorted_bbox"], gt_boxes, gt_valid,
+                        ln["sorted_score"].detach())
         if stop_after == "lnms_target":
             t = 1e-30 * (torch.sum(ln["nms_multi_score"])
                          + torch.sum(nt.float()))
@@ -602,9 +646,8 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
         cls_score, bbox_pred, fc2 = model.head(feat, tgt["rois"], nongt_dim)
         rlabel, rweight = tgt["label"], tgt["bbox_weight"]
         if ohem:
-            rlabel, rweight = ohem_select(cls_score, bbox_pred, rlabel,
-                                          tgt["bbox_target"], rweight,
-                                          int(cfg.TRAIN.BATCH_ROIS_OHEM))
+            rlabel, rweight = ohem_of(cls_score, bbox_pred, rlabel,
+                                      tgt["bbox_target"], rweight)
         rcnn_cls_loss, rcnn_bbox_loss = rcnn_losses(
             cls_score, bbox_pred, rlabel, tgt["bbox_target"], rweight,
             bbox_norm_denom)
@@ -629,48 +672,64 @@ def head_losses_fn(model, cfg, stop_after: str = "") -> Callable:
     return losses
 
 
+def batch_to_device(v, device: torch.device) -> torch.Tensor:
+    """A batch entry on ``device``: a tensor already there as it is; host
+    data (numpy, a CPU tensor) bound for a CUDA device pinned and copied
+    without blocking the host (a copy from pageable memory waits for the
+    card to finish what is queued, the previous step's backward and
+    update)."""
+    if device.type == "cuda":
+        v = torch.as_tensor(v)
+        if v.device.type == "cpu":
+            return v.pin_memory().to(device, non_blocking=True)
+    return torch.as_tensor(v, device=device)
+
+
 @trace.span("step", request=True)
 def run_step(model, state: TrainState, batch, priorities, per_image, *,
-             step_mask: dict, no_grad: bool, device, pixel_means, mesh=None,
-             draw=None, reaches_params: bool = True):
-    """One step over a batch: the batch to ``device`` (uint8 images
-    mean-subtracted there), the conv trunk and RPN batched, ``per_image(feat,
-    rpn, inputs, generator, prio) -> (total, metrics)`` for each image
-    (``inputs``: its slice of every batch entry but the image), the mean
-    loss's gradient with only the ``step_mask`` leaves requiring one, and
-    the optimizer's update in place. Returns (state, batch-mean metrics).
+             step_mask: dict, no_grad: bool, device, pixel_means, draw,
+             mesh=None, reaches_params: bool = True):
+    """One step over a batch: the batch to ``device`` (``batch_to_device``;
+    uint8 images mean-subtracted there by ``pixel_means``, the tensor of
+    predictor.py::pixel_means_tensor), the conv trunk and RPN batched,
+    ``per_image(feat, rpn, inputs, prio) -> (total, metrics)`` for each
+    image (``inputs``: its slice of every batch entry but the image;
+    ``prio``: its dict of ``priorities``), the mean loss's gradient with
+    only the ``step_mask`` leaves requiring one, and the optimizer's update
+    in place. Returns (state, batch-mean metrics). Nothing in it waits on
+    the device (but a ``mesh``'s all-reduce), so the host goes on to the
+    next step's launches while the card runs this one's backward and
+    update.
 
-    With a ``mesh`` of several ranks, the gradients of the ``step_mask``
-    leaves (zeros where a leaf got none) and the metrics are averaged over
-    the ranks before the update, and ``draw(rpn, n_images, n_gt,
-    generator)`` gives the global batch's priorities when the caller gave
-    none; this rank keeps its share. ``reaches_params`` False (a cut whose
-    loss reaches no parameter: the RCNN step's 'sample') skips the backward
+    ``draw(rpn, inputs, n_images, generator)`` gives the batch's priorities
+    from ``state.generator`` before the images when the caller gave none,
+    in the order the images would draw them one after another (``rpn`` and
+    ``inputs`` the first image's, for their shapes), so that no image draws
+    and its no-gradient stages replay. With a ``mesh`` of several ranks,
+    the gradients of the ``step_mask`` leaves (zeros where a leaf got none)
+    and the metrics are averaged over the ranks before the update, and
+    ``draw`` gives the global batch's priorities, of which this rank keeps
+    its share. ``reaches_params`` False (a cut whose loss reaches no
+    parameter: the RCNN step's 'sample') skips the backward
     and leaves every gradient at zero, as JAX's is, and so does a
     ``step_mask`` that trains no leaf (tools/train_cuts.py's f_all leg);
     otherwise a loss without a graph raises."""
-    from relation_tpu_torch.core.predictor import _image_from_u8
     from relation_tpu_torch.parallel.mesh import all_reduce_mean
     if state.model is not model:
         raise ValueError("train_step: the state belongs to another model")
     dp = mesh is not None and mesh.distributed
-    if dp and draw is None:
-        raise ValueError("this step has no data-parallel form")
     with trace.span("step.input"):
-        image = torch.as_tensor(batch["image"], device=device)
+        image = batch_to_device(batch["image"], device)
         ins = {}
         for k, v in batch.items():
             if k != "image":
-                v = torch.as_tensor(v, device=device)
+                v = batch_to_device(v, device)
                 ins[k] = v.bool() if k.endswith("valid") else v.float()
         B = image.shape[0]
         if priorities is not None and len(priorities) != B:
             raise ValueError(f"priorities for {len(priorities)} images, "
                              f"batch of {B}")
-        if image.dtype == torch.uint8:
-            means = tuple(float(m) for m in pixel_means)
-            image = torch.stack([_image_from_u8(image[b], ins["im_info"][b],
-                                                means) for b in range(B)])
+        image = _image_from_u8(image, ins["im_info"], pixel_means)
     _set_requires_grad(model, step_mask)
     with torch.set_grad_enabled(not no_grad):
         with trace.span("step.trunk_rpn"):
@@ -684,16 +743,15 @@ def run_step(model, state: TrainState, batch, priorities, per_image, *,
                 feat, rpn_cls, rpn_bbox = model.features_and_rpn(image)
                 feats, rpns = list(feat), list(zip(rpn_cls, rpn_bbox))
         with trace.span("step.rois"):
-            if dp and priorities is None:
-                every = draw(rpns[0], B * mesh.world, ins["gt_boxes"].shape[1],
-                             state.generator)
-                priorities = every[mesh.rank * B:(mesh.rank + 1) * B]
+            slices = [{k: v[b] for k, v in ins.items()} for b in range(B)]
+            if priorities is None:
+                priorities = draw(rpns[0], slices[0],
+                                  B * mesh.world if dp else B, state.generator)
+                if dp:
+                    priorities = priorities[mesh.rank * B:(mesh.rank + 1) * B]
             totals, per = [], []
             for b in range(B):
-                tot, m = per_image(feats[b], rpns[b],
-                                   {k: v[b] for k, v in ins.items()},
-                                   state.generator,
-                                   None if priorities is None else priorities[b])
+                tot, m = per_image(feats[b], rpns[b], slices[b], priorities[b])
                 totals.append(tot)
                 per.append(m)
             loss = torch.stack(totals).mean()

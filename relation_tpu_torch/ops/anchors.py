@@ -32,8 +32,9 @@ def generate_anchors(base_size: int = 16, ratios=(0.5, 1, 2),
 def shift_anchors(base_anchors, feat_height: int, feat_width: int,
                   feat_stride: int, device=None) -> torch.Tensor:
     """Full anchor grid [H*W*A, 4] f32, ordered (h, w, a) slowest to fastest:
-    the order of the RPN head's [h, w, A, .] outputs."""
-    base = torch.as_tensor(np.asarray(base_anchors), dtype=torch.float32,
+    the order of the RPN head's [h, w, A, .] outputs, on ``device`` (None:
+    the device of a tensor ``base_anchors``, else the CPU)."""
+    base = torch.as_tensor(base_anchors, dtype=torch.float32,
                            device=device)                       # [A, 4]
     sx = torch.arange(feat_width, dtype=torch.float32,
                       device=base.device) * feat_stride

@@ -13,11 +13,13 @@ CUDA toolkit, where only the plain PyTorch versions of the kernels run.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_noted = threading.local()     # count()'s notes, inside noting()
 
 
 def _nvcc() -> str:
@@ -110,10 +113,33 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def tally(shapes: dict, key: str) -> None:
-    """Count one launch at ``key`` (a shape) in a kernel module's
-    ``*_shapes`` dict, beside its plain launch counter."""
-    shapes[key] = shapes.get(key, 0) + 1
+def count(g: dict, counter: str, shapes: str = "", key: str = "") -> None:
+    """Count one launch in the kernel module whose globals are ``g``: its
+    integer ``counter`` and, where ``shapes`` names its dict of launches by
+    shape, that dict at ``key``. Inside ``noting()`` the launch is noted
+    for this thread too, whatever other threads launch meanwhile."""
+    g[counter] += 1
+    if shapes:
+        g[shapes][key] = g[shapes].get(key, 0) + 1
+    notes = getattr(_noted, "notes", None)
+    if notes is not None:
+        name = g["__name__"].rsplit(".", 1)[1]
+        notes[f"{name}.{counter}"] = notes.get(f"{name}.{counter}", 0) + 1
+        if shapes:
+            by_shape = notes.setdefault(f"{name}.{shapes}", {})
+            by_shape[key] = by_shape.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def noting():
+    """Yields {"module.counter": n, "module.shapes": {key: n}}, filled by
+    the launches that ``count`` counts on this thread inside the block (a
+    CUDA graph's capture, utils/graphs.py)."""
+    _noted.notes = notes = {}
+    try:
+        yield notes
+    finally:
+        _noted.notes = None
 
 
 def check(rc: int, name: str) -> None:

@@ -111,10 +111,9 @@ class _BiasAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, bias, q, k, v, wl):
-        global launches
         out = _launch(bias, q, k, v, wl, None, "fused_bias_attention")
-        launches += 1
-        _build.tally(launch_shapes, f"C={bias.shape[0]} N={bias.shape[2]}")
+        _build.count(globals(), "launches", "launch_shapes",
+                     f"C={bias.shape[0]} N={bias.shape[2]}")
         ctx.save_for_backward(bias, q, k, v, wl)
         return out
 
@@ -152,10 +151,9 @@ def fused_bias_attention_skip(bias, q, k, v, wl, active) -> torch.Tensor:
     TPU (the learned-NMS head masks them with where()); CPU tensors take the
     plain version (zeros there). Inference only: on the card an input that
     requires a gradient is refused, never answered detached."""
-    global skip_launches
     if bias.device.type != "cuda":
         return bias_attention_reference(bias, q, k, v, wl, active)
     _build.refuse_grad("fused_bias_attention_skip", bias, q, k, v, wl)
     out = _launch(bias, q, k, v, wl, active, "fused_bias_attention_skip")
-    skip_launches += 1
+    _build.count(globals(), "skip_launches")
     return out

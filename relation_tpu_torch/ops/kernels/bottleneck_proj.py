@@ -92,7 +92,6 @@ def fused_proj_bottleneck(x, w1, b1p, wa, b1, w3, b2, wc, b3, *,
     not divide H and W, as the JAX kernel does. CUDA tensors launch the
     kernel (bf16 map and weights, f32 biases, channel counts multiples of
     64); CPU tensors take the plain version. Inference only."""
-    global launches
     Hi, Wi, _ = x.shape
     if Hi % stride or Wi % stride:
         raise ValueError(
@@ -105,5 +104,5 @@ def fused_proj_bottleneck(x, w1, b1p, wa, b1, w3, b2, wc, b3, *,
         return proj_bottleneck_reference(x, w1, b1p, wa, b1, w3, b2, wc, b3,
                                          stride=stride)
     out = _launch(x, w1, b1p, wa, b1, w3, b2, wc, b3, stride)
-    launches += 1
+    _build.count(globals(), "launches")
     return out

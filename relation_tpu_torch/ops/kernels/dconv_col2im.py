@@ -107,7 +107,6 @@ def dconv_col2im(yz: torch.Tensor, xz: torch.Tensor, inside: torch.Tensor,
     CUDA tensors launch the kernel; CPU tensors take the plain version. The
     function has no gradient of its own: it is the backward of the
     deformable conv (ops/deform.py)."""
-    global launches
     if d.device.type != "cuda":
         return dconv_col2im_reference(yz, xz, inside, d, H, W)
     if d.dim() != 4 or yz.shape != d.shape[:3] or xz.shape != yz.shape \
@@ -123,5 +122,5 @@ def dconv_col2im(yz: torch.Tensor, xz: torch.Tensor, inside: torch.Tensor,
     _build.check_inputs("dconv_col2im", yz, xz, inside, d)
     _build.refuse_grad("dconv_col2im", yz, xz, d)
     dx = _launch(yz, xz, inside, d, H, W)
-    launches += 1
+    _build.count(globals(), "launches")
     return dx

@@ -201,11 +201,10 @@ class _GeomBias(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos_t, kernel, bias, scale):
-        global launches
         out = _launch(pos_t.contiguous(), kernel.contiguous(),
                       bias.contiguous(), scale)
-        launches += 1
-        _build.tally(launch_shapes, _shape_key(pos_t))
+        _build.count(globals(), "launches", "launch_shapes",
+                     _shape_key(pos_t))
         ctx.save_for_backward(pos_t, kernel, bias)
         ctx.scale = scale
         return out
@@ -213,13 +212,12 @@ class _GeomBias(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        global bwd_launches
         pos_t, kernel, bias = ctx.saved_tensors
         d_pos, d_w, d_b = _launch_bwd(
             pos_t.contiguous(), kernel.contiguous(), bias.contiguous(),
             gout.contiguous(), ctx.scale, need_pos=ctx.needs_input_grad[0])[:3]
-        bwd_launches += 1
-        _build.tally(bwd_launch_shapes, _shape_key(pos_t))
+        _build.count(globals(), "bwd_launches", "bwd_launch_shapes",
+                     _shape_key(pos_t))
         return d_pos, d_w, d_b, None
 
 
@@ -243,11 +241,10 @@ def fused_geometric_bias_skip(pos_t: torch.Tensor, kernel: torch.Tensor,
     class's rows are bit-equal to the unskipped kernel's; CPU tensors take
     the plain version (zeros there). Inference only: on the card an input
     that requires a gradient is refused, never answered detached."""
-    global skip_launches
     if pos_t.device.type != "cuda":
         return geom_bias_skip_reference(pos_t, kernel, bias, active, scale)
     _build.refuse_grad("fused_geometric_bias_skip", pos_t, kernel, bias)
     out = _launch(pos_t.contiguous(), kernel.contiguous(), bias.contiguous(),
                   scale, active=active)
-    skip_launches += 1
+    _build.count(globals(), "skip_launches")
     return out

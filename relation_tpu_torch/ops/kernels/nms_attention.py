@@ -147,7 +147,6 @@ def fused_nms_relation_attention_skip(pos_t, q, k, v, wg, bg, wl, active,
     launch); CPU tensors take the plain version. Inference only: on the card
     an input that requires a gradient is refused, never answered
     detached."""
-    global launches
     if pos_t.device.type != "cuda":
         return nms_relation_attention_reference(pos_t, q, k, v, wg, bg, wl,
                                                 active, scale)
@@ -155,8 +154,8 @@ def fused_nms_relation_attention_skip(pos_t, q, k, v, wg, bg, wl, active,
                        pos_t, q, k, v, wg, bg, wl)
     out = _launch(pos_t, q, k, v, wg, bg, wl, active, scale,
                   "fused_nms_relation_attention_skip")
-    launches += 1
-    _build.tally(launch_shapes, f"C={pos_t.shape[0]} N={pos_t.shape[2]}")
+    _build.count(globals(), "launches", "launch_shapes",
+                 f"C={pos_t.shape[0]} N={pos_t.shape[2]}")
     return out
 
 
@@ -167,10 +166,9 @@ class _FullAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos_t, q, k, v, wg, bg, wl, scale):
-        global full_launches
         out = _launch(pos_t, q, k, v, wg, bg, wl, None, scale,
                       "fused_nms_relation_attention")
-        full_launches += 1
+        _build.count(globals(), "full_launches")
         ctx.save_for_backward(pos_t, q, k, v, wg, bg, wl)
         ctx.scale = scale
         return out

@@ -107,7 +107,6 @@ def nms_keep_sorted(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
     Returns keep [C, N] f32. CUDA tensors launch the kernel; CPU tensors
     take the plain version. The mask has no gradient: on the card an input
     that requires one is refused."""
-    global launches
     if boxesT.device.type != "cuda":
         return nms_keep_sorted_reference(boxesT, valid, thresh, block, max_keep)
     C, four, N = boxesT.shape
@@ -123,6 +122,6 @@ def nms_keep_sorted(boxesT: torch.Tensor, valid: torch.Tensor, thresh: float,
     _build.refuse_grad("nms_keep_sorted", boxesT, valid)
     cap = N if max_keep is None else int(max_keep)
     keep = launch(boxesT, valid, thresh, block, cap)
-    launches += 1
-    _build.tally(launch_shapes, f"C={C} Np={N}")
+    _build.count(globals(), "launches", "launch_shapes",
+                 f"C={C} Np={N}")
     return keep

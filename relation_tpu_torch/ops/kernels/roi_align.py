@@ -112,10 +112,8 @@ def _launch_bwd(dout, rois, shapes, scales, P: int, S: int, wanted):
 
 
 def _count(levels, rois) -> None:
-    global launches
-    launches += 1
-    _build.tally(launch_shapes, f"L={len(levels)} R={rois.shape[0]} "
-                                f"C={levels[0].shape[2]}")
+    _build.count(globals(), "launches", "launch_shapes",
+                 f"L={len(levels)} R={rois.shape[0]} C={levels[0].shape[2]}")
 
 
 class _RoiAlign(torch.autograd.Function):
@@ -135,14 +133,13 @@ class _RoiAlign(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        global bwd_launches
         (rois,) = ctx.saved_tensors
         scales, P, S, shapes, dtype = ctx.meta
         if dout.dtype not in (torch.float32, torch.bfloat16):
             dout = dout.float()
         grads = _launch_bwd(dout.contiguous(), rois, shapes, scales, P, S,
                             ctx.needs_input_grad[4:])
-        bwd_launches += 1
+        _build.count(globals(), "bwd_launches")
         return (None, None, None, None,
                 *[None if g is None else g.to(dtype) for g in grads])
 

@@ -167,10 +167,8 @@ def _launch_bwd(dout, argmax, H: int, W: int):
 
 
 def _count(feat) -> None:
-    global launches
-    launches += 1
     H, W, C = feat.shape
-    _build.tally(launch_shapes, f"H={H} W={W} C={C}")
+    _build.count(globals(), "launches", "launch_shapes", f"H={H} W={W} C={C}")
 
 
 class _RoiPool(torch.autograd.Function):
@@ -189,13 +187,12 @@ class _RoiPool(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        global bwd_launches
         (argmax,) = ctx.saved_tensors
         if dout.dtype not in (torch.float32, torch.bfloat16):
             dout = dout.float()
         H, W, _ = ctx.shape
         dfeat = _launch_bwd(dout.contiguous(), argmax, H, W)
-        bwd_launches += 1
+        _build.count(globals(), "bwd_launches")
         return dfeat.to(ctx.dtype), None, None, None
 
 

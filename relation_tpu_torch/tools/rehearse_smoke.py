@@ -127,10 +127,10 @@ def install_stubs() -> None:
             int(P), int(S), *[f.contiguous() for f in levels]))
     def nms_keep(bT, *a, **k):
         from relation_tpu_torch.ops.kernels import _build
-        _build.tally(nms_kernel.launch_shapes,
+        _build.count(vars(nms_kernel), "launches", "launch_shapes",
                      f"C={bT.shape[0]} Np={bT.shape[2]}")
         return nms_kernel.nms_keep_sorted_reference(bT, *a, **k)
-    nms.nms_keep_sorted = counted(nms_kernel, "launches", nms_keep)
+    nms.nms_keep_sorted = nms_keep
     deform.dconv_col2im = counted(dconv_col2im, "launches",
                                   dconv_col2im.dconv_col2im_reference)
     bb.fused_bottleneck_stack = res4._Stack.apply

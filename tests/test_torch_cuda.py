@@ -1047,3 +1047,318 @@ def test_roi_align_kernel_refuses_bad_inputs(dev):
         RA.roi_align_levels([f], [0.25], rois[:, :3])
     with pytest.raises(ValueError):
         RA.roi_align_levels([f], [0.25], rois.cpu())
+
+
+@pytest.mark.parametrize("feed", ["device", "numpy"])
+def test_end2end_steps_never_wait_on_the_card(dev, feed):
+    """Two END2END steps of the deformable model (the dcn_learn_nms cell at
+    its rehearsal size: every published width, 64x128 images, B=2) under
+    ``torch.cuda.set_sync_debug_mode("error")`` raise nothing: no copy from
+    pageable memory, no read of a value, no synchronise, so the host
+    launches the next step while the card runs this one. The batch lives on
+    the card (the benchmark's) or arrives as numpy arrays (the train
+    driver's loader), which the step pins and copies without blocking. One
+    step before them builds the kernels and warms the allocator."""
+    from benchmark.harness import cells
+    from benchmark.harness.common import rehearsal
+    from benchmark.harness.drivers.train_e2e import INPUTS
+    from benchmark.reference import dcn as ref
+    spec = cells.resolve("dcn_learn_nms.train_b4")
+    config, mix = rehearsal(spec["config"], spec["mix"])
+    ctx = {"config": config, "reference": ref, "mix": mix, "seed": 7,
+           "device": dev, "rehearse": True, "fault": ""}
+    _, state, step, _, batches = cells.driver(mix["kind"]).build(ctx)
+    if feed == "numpy":
+        batches = [{k: v.cpu().numpy() if k in INPUTS else v
+                    for k, v in b.items()} for b in batches]
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[1:3]:
+            state, metrics = step(state, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert state.count == 3
+    assert np.isfinite(float(metrics["total_loss"]))
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nest of tuples, lists and dicts, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [t for v in tree for t in _leaves(v)]
+
+
+def test_replayed_graph_equals_the_eager_calls(dev, monkeypatch):
+    """utils/graphs.py::replayed on the card: the anchor targets of three
+    images (other boxes and priorities, one signature) through the CUDA
+    graph equal the eager calls bit for bit, the first call's outputs
+    survive the later replays, and a call with another signature captures
+    its own graph; proposals through a graph equal the eager ones and count
+    one NMS launch a replay. The graphed stages of core/trainer.py, each
+    held to its undecorated function over several inputs under one
+    signature and one under another: ``sample_fn``'s sampler in take-all
+    and in sampled mode (handed priorities), and ``head_losses_fn``'s OHEM
+    selection and learned-NMS targets. A launch that another thread counts
+    during a capture is not added to the replays' counts."""
+    from relation_tpu_torch.models.targets import anchor_targets
+    from relation_tpu_torch.ops.anchors import generate_anchors, shift_anchors
+    from relation_tpu_torch.utils.graphs import replayed
+    rng = np.random.RandomState(4)
+    anchors = shift_anchors(torch.tensor(generate_anchors(16, (0.5, 1, 2),
+                                                          (4, 8, 16, 32)),
+                                         device=dev), 19, 32, 16)
+    K = anchors.shape[0]
+    w = _tens([1.0, 1.0, 1.0, 1.0], dev)
+
+    def case(G):
+        xy = rng.uniform(0, 400, (G, 2))
+        gt = np.concatenate([xy, xy + rng.uniform(20, 200, (G, 2)),
+                             rng.randint(1, 81, (G, 1))], 1)
+        valid = torch.tensor(rng.uniform(0, 1, G) > 0.2, device=dev)
+        return (anchors, _tens(gt, dev), valid, _tens([304, 512, 1.0], dev),
+                _tens(rng.uniform(0, 1, K), dev), _tens(rng.uniform(0, 1, K), dev))
+
+    def fn(anchors, gt, valid, info, fg, bg):
+        return anchor_targets(anchors, gt, valid, info, priorities=(fg, bg),
+                              bbox_weights=w)
+    graphed = replayed(fn)
+    cases = [case(16) for _ in range(3)] + [case(5)]
+    got = [graphed(*c) for c in cases]
+    want = [fn(*c) for c in cases]
+    for g, wt in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, wt))
+    assert not torch.equal(got[0][0], got[1][0])
+    assert int((got[0][0] == 1).sum()) > 0
+
+    # proposals, with the NMS kernel inside: each replay counts its launch
+    from relation_tpu_torch.models.rpn import generate_proposals
+    base = torch.tensor(generate_anchors(16, (0.5, 1, 2), (4, 8, 16, 32)),
+                        dtype=torch.float32, device=dev)
+    info = _tens([304, 512, 1.0], dev)
+
+    def props(prob, deltas):
+        return generate_proposals(prob, deltas, base, info, 16, 600, 100,
+                                  0.7, 0.0)[0]
+    graphed, counted = replayed(props), []
+    for _ in range(3):
+        prob = _tens(rng.uniform(0, 1, (19, 32, 12)), dev)
+        deltas = _tens(rng.randn(19, 32, 12, 4) * 0.2, dev)
+        before = NK.launches
+        rois = graphed(prob, deltas)
+        counted.append(NK.launches - before)
+        assert torch.equal(rois, props(prob, deltas))
+    # the first call runs once as it is, then replays its capture
+    assert counted == [2, 1, 1]
+
+    # a function that copies from the host cannot be captured: it runs as
+    # it is, with a warning, and gives its own results
+    def from_host(x):
+        return x * torch.tensor(3.0, device=x.device)
+    x = _tens(rng.randn(5), dev)
+    with pytest.warns(UserWarning, match="without a CUDA graph"):
+        y = replayed(from_host)(x)
+    assert torch.equal(y, x * 3.0)
+
+    # the trainer's graphed closures, with their undecorated functions
+    from relation_tpu_torch.core import trainer
+    from relation_tpu_torch.entry import family_cfg
+    made = []
+
+    def keep(fn):
+        made.append(fn)
+        return replayed(fn)
+    monkeypatch.setattr(trainer, "replayed", keep)
+    cfg = family_cfg("flagship")
+    consts = trainer.target_constants(cfg.TRAIN.BBOX_MEANS, cfg.TRAIN.BBOX_STDS,
+                                      cfg.TRAIN.BBOX_WEIGHTS, dev)
+
+    def held(call, fn, cases):
+        """``call`` on every case equals ``fn`` on it, bit for bit, and
+        the first case's outputs survive the later calls."""
+        got = [call(*c) for c in cases]
+        first = _leaves(got[0])
+        want = [_leaves(fn(*c)) for c in cases]
+        for g, w in zip(got, want):
+            g = _leaves(g)
+            assert len(g) == len(w) and all(torch.equal(a, b)
+                                            for a, b in zip(g, w))
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(got[0]), first))
+        assert not all(torch.equal(a, b)
+                       for a, b in zip(_leaves(got[0]), _leaves(got[1])))
+
+    def roi_case(R, G, sampled):
+        xy = rng.uniform(0, 400, (R, 2))
+        rois = np.concatenate([xy, xy + rng.uniform(8, 200, (R, 2))], 1)
+        xy = rng.uniform(0, 400, (G, 2))
+        gt = np.concatenate([xy, xy + rng.uniform(20, 200, (G, 2)),
+                             rng.randint(1, 81, (G, 1))], 1)
+        rois[:G] = gt[:, :4] + rng.uniform(-6, 6, (G, 4))
+        prio = [_tens(rng.uniform(0, 1, R + G), dev)
+                for _ in range(4 if sampled else 0)]
+        return (_tens(rois, dev), torch.arange(R, device=dev) < R - 5,
+                _tens(gt, dev), torch.tensor(rng.uniform(0, 1, G) > 0.2,
+                                             device=dev), *prio)
+    for batch_rois in (-1, 32):
+        sampled = batch_rois >= 0
+        made.clear()
+        sample = trainer.sample_fn(cfg, batch_rois, 2, consts, True)
+        fn, = made
+        cases = [roi_case(300, 8, sampled) for _ in range(3)] + [
+            roi_case(120, 3, sampled)]
+        held(lambda *c: sample(*c[:4], c[4:] or None), fn, cases)
+
+    made.clear()
+    model = trainer.build_model(cfg, tiny=True, device=dev)
+    trainer.head_losses_fn(model, cfg)
+    ohem, nms_target = made
+    assert "ohem_select" in ohem.__code__.co_names
+    assert "nms_multi_target" in nms_target.__code__.co_names
+
+    def ohem_case(N):
+        label = rng.randint(-1, 81, N)
+        return (_tens(rng.randn(N, 81) * 2, dev), _tens(rng.randn(N, 8), dev),
+                torch.tensor(label, device=dev), _tens(rng.randn(N, 8), dev),
+                _tens((label[:, None] > 0) * np.ones((N, 8)), dev))
+    held(replayed(ohem), ohem, [ohem_case(300) for _ in range(3)]
+         + [ohem_case(150)])
+
+    def nms_case(F, G):
+        xy = rng.uniform(0, 300, (F, 80, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(10, 150, (F, 80, 2))], 2)
+        cols = rng.randint(0, 80, G)         # a gt box of class c + 1 near
+        gt = np.concatenate([boxes[rng.randint(0, F, G), cols]   # a box of c
+                             + rng.uniform(-5, 5, (G, 4)), cols[:, None] + 1], 1)
+        return (_tens(boxes, dev), _tens(gt, dev),
+                torch.tensor(rng.uniform(0, 1, G) > 0.1, device=dev),
+                _tens(np.sort(rng.uniform(0, 1, (F, 80)), 0)[::-1], dev))
+    held(replayed(nms_target), nms_target,
+         [nms_case(100, 12) for _ in range(3)] + [nms_case(100, 5)])
+
+    # what another thread launches during a capture stays out of the
+    # replays' count: proposals captured while a thread launches NMS
+    import threading
+    go, stop = threading.Event(), threading.Event()
+
+    def launcher():
+        s = torch.cuda.Stream(dev)
+        with torch.cuda.stream(s):
+            bT = torch.rand(1, 4, 256, device=dev).cumsum(1)
+            v = torch.ones(1, 256, device=dev)
+            go.set()
+            while not stop.is_set():
+                NK.nms_keep_sorted(bT, v, 0.5, block=256, max_keep=16)
+        s.synchronize()
+    t = threading.Thread(target=launcher)
+    t.start()
+    go.wait()
+    try:
+        graphed = replayed(props)
+        prob = _tens(rng.uniform(0, 1, (19, 32, 12)), dev)
+        deltas = _tens(rng.randn(19, 32, 12, 4) * 0.2, dev)
+        graphed(prob, deltas)
+    finally:
+        stop.set()
+        t.join()
+    before = NK.launches
+    graphed(prob, deltas)
+    assert NK.launches - before == 1
+
+
+def test_graphed_end2end_steps_equal_the_eager_step(dev, monkeypatch, recwarn):
+    """END2END steps of the deformable model (the dcn_learn_nms cell at its
+    rehearsal size), each from the same weights on the same batch and
+    priorities: two of the step built without graphs, and two of the step
+    whose no-gradient stages (anchor targets, proposals, sample_rois, OHEM,
+    learned-NMS targets) are CUDA graphs, the first capturing them and the
+    second replaying them. Every graphed call equals its undecorated
+    function on the same arguments, bit for bit; what a call returned is
+    unchanged after the whole step (no later replay wrote over it); the
+    stages' outputs of both graphed steps equal the first eager step's, bit
+    for bit, image after image; no capture fails. The step itself is not
+    bit-reproducible on the card (two eager steps differ in the
+    learned-NMS loss by an ulp and in most gradients, from the learned-NMS
+    scores and the backward's atomic adds), so the graphed steps' metrics
+    equal the eager step's to 1e-6 and their first gradients lie within
+    four times the distance between the two eager steps' (over every leaf
+    at once)."""
+    from benchmark.harness import cells
+    from benchmark.harness.common import rehearsal
+    from benchmark.reference import dcn as ref
+    from relation_tpu_torch.core import trainer
+    from relation_tpu_torch.utils.graphs import replayed
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    spec = cells.resolve("dcn_learn_nms.train_b4")
+    config, mix = rehearsal(spec["config"], spec["mix"])
+    names = ("anchor_targets", "generate_proposals", "sample_rois",
+             "ohem_select", "nms_multi_target")
+    stages, returned = [], []
+
+    def recorded(graphs):
+        def wrap(fn):
+            name, = [n for n in names if n in fn.__code__.co_names]
+            run = replayed(fn) if graphs else torch.no_grad()(fn)
+
+            def call(*args):
+                got = run(*args)
+                if graphs:
+                    with torch.no_grad():
+                        want = fn(*args)
+                    g, w = _leaves(got), _leaves(want)
+                    assert len(g) == len(w) and all(
+                        torch.equal(a, b) for a, b in zip(g, w)), name
+                    returned[-1].extend((t, t.clone()) for t in g)
+                stages[-1].append((name, [t.clone() for t in _leaves(got)]))
+                return got
+            return call
+        return wrap
+
+    def first_steps(graphs: bool):
+        """(metrics, first gradients) of two steps on the first batch,
+        each from the built weights."""
+        monkeypatch.setattr(trainer, "replayed", recorded(graphs))
+        ctx = {"config": config, "reference": ref, "mix": mix, "seed": 7,
+               "device": dev, "rehearse": True, "fault": ""}
+        model, state, step, W, batches = cells.driver(mix["kind"]).build(ctx)
+        update, out = state.tx.update, []
+
+        def keep(m, trace_, count):
+            out[-1][1].update({k: p.grad.clone()
+                               for k, p in m.named_parameters()
+                               if p.grad is not None})
+            return update(m, trace_, count)
+        state.tx.update = keep
+        for _ in range(2):
+            model.load_state_dict(W, strict=True)
+            out.append(({}, {}))
+            stages.append([])
+            returned.append([])
+            state, metrics = step(state, batches[0])
+            out[-1][0].update({k: float(v) for k, v in metrics.items()})
+            torch.cuda.synchronize()
+            assert all(torch.equal(t, c) for t, c in returned[-1])
+        return out
+
+    (want_m, want_g), (_, again_g) = first_steps(False)
+    got = first_steps(True)
+    assert not [w for w in recwarn if "without a CUDA graph" in str(w.message)]
+    assert {n for n, _ in stages[0]} == set(names)
+    for run in stages[1:]:
+        assert [n for n, _ in run] == [n for n, _ in stages[0]]
+        for (n, ts), (_, want) in zip(run, stages[0]):
+            assert all(torch.equal(a, b) for a, b in zip(ts, want)), n
+    assert all(returned[2:]) and len(want_g) > 10
+
+    def dist(g):
+        return float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g[k] - w) for k, w in want_g.items()])))
+    noise = dist(again_g)
+    for m, g in got:
+        assert m == pytest.approx(want_m, rel=1e-6)
+        assert set(g) == set(want_g)
+        assert dist(g) <= 4 * noise, (dist(g), noise)

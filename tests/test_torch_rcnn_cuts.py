@@ -143,18 +143,22 @@ def test_run_step_differentiates_every_loss_but_a_cut_without_parameters():
     (the cut tool's f_all leg), where the update runs on zero gradients, as
     JAX's does."""
     from relation_tpu_torch.convert import init_params
+    from relation_tpu_torch.core.predictor import pixel_means_tensor
     from relation_tpu_torch.core.trainer import (build_model, create_train_state,
                                                  run_step, trainable_mask)
     cfg, _, _ = _case_cfg("sampled_custom_stats")
     model = init_params(build_model(cfg, tiny=True, device="cpu"), seed=1)
     state = create_train_state(model, cfg, seed=5)
 
-    def per_image(_feat, _rpn, _ins, _generator, _prio):
+    def per_image(_feat, _rpn, _ins, _prio):
         total = torch.full((), 1e-30)
         return total, {"total_loss": total}
+
+    def draw(_rpn, _ins, n_images, _generator):
+        return [{} for _ in range(n_images)]
     kw = dict(step_mask=trainable_mask(model, tuple(cfg.network.FIXED_PARAMS)),
               no_grad=False, device=torch.device("cpu"),
-              pixel_means=cfg.network.PIXEL_MEANS)
+              pixel_means=pixel_means_tensor(cfg, "cpu"), draw=draw)
     with pytest.raises(RuntimeError, match="grad"):
         run_step(model, state, _rcnn_batch(), None, per_image, **kw)
     assert state.count == 0
